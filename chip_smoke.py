@@ -5,12 +5,21 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  It builds the port's kernels from ``src/repro_torch/kernels/
-csrc``, holds each against its plain PyTorch version on the card, times it,
-drives the trace-driven spot-market simulation through the kernel (the
-paper's 60-machine quick trace and a 12,583-machine Google-trace-scale
-fleet), and checks the results against the numpy backend.  Any failed check
-ends the run with a non-zero exit.  The last lines are a JSON record of the
-kernels, the card's name and power limit, and ``{"ok": true, ...}``.
+csrc`` (one nvcc per source, in parallel), holds each against its plain
+PyTorch version on the card, and times it.  It drives two main paths:
+
+* the trace-driven spot-market simulation through the HLEM kernel (the
+  paper's 60-machine quick trace and a 12,583-machine Google-trace-scale
+  fleet), checked against the numpy backend;
+* Hymba-1.5B serving at full width (``repro_torch.launch.serve``: 16
+  requests of 2048-token prompts and 32 generated tokens, batch 8, one
+  hibernation), whose prefill attention and every selective scan run
+  through the flash-attention and scan kernels, checked against a
+  teacher-forced forward.
+
+Any failed check ends the run with a non-zero exit.  The last lines are a
+JSON record of the kernels, the card's name and power limit, and
+``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -28,6 +38,39 @@ RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain version, float32 both
 N_CLUSTER = 12_583             # machines in the Google cluster trace
 QUICK_PINNED = {"vms": 2582, "allocations": 3205, "interruptions": 623,
                 "max_interruption_s": 364, "redeployed": 249}
+KERNEL_SOURCES = ("hlem_score", "flash_attention", "ssm_scan")
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+# kernel vs plain version, as the reference's kernel tests hold Pallas
+ATT_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SCAN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 5e-3)}   # (y, hT)
+# Hymba-1.5B at full width: two batches of 8, one hibernation and resume
+SERVE_ARGV = ["--arch", "hymba_1_5b", "--requests", "16", "--batch", "8",
+              "--prompt-len", "2048", "--gen-tokens", "32",
+              "--interrupt-at", "8"]
+# a greedy token may differ from teacher forcing only at a near tie: within
+# two bf16 ulps of a logit of magnitude 4-8
+NEAR_TIE = 0.0625
+# the reference kernel tests' cases: b, h, hkv, tq, tk, dh, window, dtype,
+# causal; then the model's prefill shape
+ATT_CASES = [
+    (2, 4, 4, 128, 128, 64, None, "float32", True),
+    (1, 8, 2, 96, 96, 64, None, "float32", True),
+    (1, 4, 2, 1, 200, 64, None, "float32", True),
+    (2, 4, 4, 128, 128, 64, 32, "float32", True),
+    (1, 2, 1, 64, 64, 128, None, "bfloat16", True),
+    (1, 5, 1, 70, 70, 16, 16, "float32", True),
+    (1, 2, 2, 50, 50, 32, None, "float32", False),
+    (8, 25, 5, 2048, 2048, 64, 1024, "bfloat16", True),
+]
+# b, t, dm, n, with_h0, dtype; then the model's prefill and decode shapes
+SCAN_CASES = [
+    (2, 64, 128, 16, False, "float32"),
+    (1, 100, 96, 16, True, "float32"),
+    (1, 1, 64, 16, True, "float32"),
+    (2, 64, 128, 16, False, "bfloat16"),
+    (8, 2048, 3200, 16, False, "bfloat16"),
+    (8, 1, 3200, 16, True, "bfloat16"),
+]
 
 
 def fail(msg: str) -> None:
@@ -129,6 +172,156 @@ def bound(free, masks):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bound(q, k, causal, window):
+    """Least time for one attention call: q, k, v read and o written once at
+    the HBM rate, against 4*dh flops (QK^T and PV) per unmasked (q, k) pair
+    at the bf16 tensor-core rate (f32 rate for f32 inputs).  Exps and the
+    softmax bookkeeping are not counted.  Returns (ms, by, flops)."""
+    b, h, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    pairs = 0
+    for i in range(tq):
+        qpos = i + tk - tq
+        hi = qpos if causal else tk - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        pairs += max(0, min(hi, tk - 1) - lo + 1)
+    flops = 4 * dh * pairs * b * h
+    nbytes = q.element_size() * (2 * b * h * tq * dh + 2 * b * hkv * tk * dh)
+    rate = BF16_OPS_PER_S if q.element_size() == 2 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def scan_bound(x, n, with_h0):
+    """Least time for one selective scan: x, dt, b, c, a, d (and h0) read,
+    y and hT written once at the HBM rate, against the f32 operations per
+    (b, t, d, n): dt*a, exp, dt*b, *x, the state FMA (2) and the output FMA
+    (2), 8 in all, plus 2 per (b, t, d) for d*x + y, at the non-tensor-core
+    f32 rate.  Returns (ms, by)."""
+    bsz, t, dm = x.shape
+    es = x.element_size()
+    nbytes = (es * (3 * bsz * t * dm + 2 * bsz * t * n) + 4 * (dm * n + dm)
+              + 4 * bsz * dm * n * (2 if with_h0 else 1))
+    ops = 8 * bsz * t * dm * n + 2 * bsz * t * dm
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_attention(torch, rng, fa):
+    """The flash kernel against its plain version on the reference's cases
+    and the model's prefill shape: tolerance, finite, bit-equal reruns.
+    Returns the largest absolute error by dtype."""
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for b, h, hkv, tq, tk, dh, window, dt, causal in ATT_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype("float32")).to(
+            "cuda", dtype) for s in ((b, h, tq, dh), (b, hkv, tk, dh),
+                                     (b, hkv, tk, dh)))
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.mha_ref(q, k, v, causal=causal, window=window)
+        what = f"attention {(b, h, hkv, tq, tk, dh, window, dt, causal)}"
+        if out.dtype != dtype or out.shape != want.shape:
+            fail(f"{what}: got {out.dtype} {tuple(out.shape)}")
+        if not torch.isfinite(out).all():
+            fail(f"{what}: non-finite output")
+        err = (out.float() - want.float()).abs().max().item()
+        if err > ATT_TOL[dt]:
+            fail(f"{what}: max abs err {err:.3e} > {ATT_TOL[dt]}")
+        if not torch.equal(out, again):
+            fail(f"{what}: two launches differ (not deterministic)")
+        errs[dt] = max(errs[dt], err)
+        del q, k, v, out, again, want
+    return errs
+
+
+def scan_inputs(torch, rng, b, t, dm, n, with_h0, dt):
+    dtype = getattr(torch, dt)
+    f = lambda *s: rng.normal(0, 1, s).astype("float32")
+    x = torch.from_numpy(f(b, t, dm)).to("cuda", dtype)
+    dtv = torch.from_numpy(rng.uniform(0.001, 0.1, (b, t, dm)).astype(
+        "float32")).to("cuda", dtype)
+    a = torch.from_numpy(-rng.uniform(0.1, 1, (dm, n)).astype("float32")).cuda()
+    bb = torch.from_numpy(f(b, t, n)).to("cuda", dtype)
+    c = torch.from_numpy(f(b, t, n)).to("cuda", dtype)
+    d = torch.from_numpy(f(dm)).cuda()
+    h0 = torch.from_numpy(f(b, dm, n)).cuda() if with_h0 else None
+    return x, dtv, a, bb, c, d, h0
+
+
+def compare_scan(torch, got, want, dt, what):
+    (y, h), (yr, hr) = got, want
+    if y.dtype != yr.dtype or y.shape != yr.shape or h.shape != hr.shape:
+        fail(f"{what}: got y {y.dtype} {tuple(y.shape)}, hT {tuple(h.shape)}")
+    if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+        fail(f"{what}: non-finite output")
+    ey = (y.float() - yr.float()).abs().max().item()
+    eh = (h - hr).abs().max().item()
+    ty, th = SCAN_TOL[dt]
+    if ey > ty or eh > th:
+        fail(f"{what}: max abs err y {ey:.3e} (tol {ty}), hT {eh:.3e} (tol {th})")
+    return ey, eh
+
+
+def check_scan(torch, rng, ss):
+    """The scan kernel against its plain version on the reference's cases,
+    the model's prefill and decode shapes, and two chunks with carried
+    state against one full scan.  Returns the largest (y, hT) errors by
+    dtype."""
+    errs = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    for case in SCAN_CASES:
+        args = scan_inputs(torch, rng, *case)
+        out = ss.ssm_scan(*args)
+        again = ss.ssm_scan(*args)
+        ey, eh = compare_scan(torch, out, ss.ssm_scan_ref(*args), case[-1],
+                              f"scan {case}")
+        if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
+            fail(f"scan {case}: two launches differ (not deterministic)")
+        e = errs[case[-1]]
+        errs[case[-1]] = (max(e[0], ey), max(e[1], eh))
+    x, dtv, a, bb, c, d, _ = scan_inputs(torch, rng, 1, 64, 64, 16, False,
+                                         "float32")
+    y_full, h_full = ss.ssm_scan(x, dtv, a, bb, c, d)
+    y1, h1 = ss.ssm_scan(x[:, :32], dtv[:, :32], a, bb[:, :32], c[:, :32], d)
+    y2, h2 = ss.ssm_scan(x[:, 32:], dtv[:, 32:], a, bb[:, 32:], c[:, 32:], d, h1)
+    ey = (torch.cat([y1, y2], 1) - y_full).abs().max().item()
+    eh = (h2 - h_full).abs().max().item()
+    if ey > 1e-4 or eh > 1e-4:
+        fail(f"scan: two chunks with carried state differ from one full scan "
+             f"(y {ey:.3e}, hT {eh:.3e})")
+    return errs
+
+
+def device_breakdown(torch, prof):
+    """Device self time in ms by kernel family, from a profiler run."""
+    groups = {"flash_attention": 0.0, "ssm_scan": 0.0, "gemm": 0.0,
+              "other": 0.0}
+    for a in prof.key_averages():
+        if getattr(a, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        key = a.key.lower()
+        if "flash_attention_kernel" in key:
+            g = "flash_attention"
+        elif "ssm_scan_kernel" in key:
+            g = "ssm_scan"
+        elif any(s in key for s in ("gemm", "xmma", "cutlass", "nvjet")):
+            g = "gemm"
+        else:
+            g = "other"
+        groups[g] += a.self_device_time_total / 1e3
+    return groups
+
+
+def top_kernels(torch, prof, k=8):
+    """The ``k`` device kernels with the most self time: (name, ms, calls)."""
+    rows = [(a.key, a.self_device_time_total / 1e3, a.count)
+            for a in prof.key_averages()
+            if getattr(a, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])[:k]
+
+
 def trace_stats(sim, metrics):
     s = metrics.spot_stats(sim.vms)
     return {"vms": len(sim.vms), "allocations": metrics.allocations,
@@ -158,22 +351,30 @@ def main() -> int:
     from repro_torch.core import allocation as core_alloc
     from repro_torch.core.types import make_spot, resources
     from repro_torch.kernels import _build, hlem_score as hk, ops
+    from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models.model import forward
+    from repro_torch.serve import make_prefill_step, make_serve_step
     from repro_torch.market.trace import (TraceConfig, generate_trace,
                                           simulate_trace)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
+    torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"devices {torch.cuda.device_count()}")
 
-    # -- build -----------------------------------------------------------------
+    # -- build: one nvcc per source, all started together ------------------------
     t0 = time.perf_counter()
-    lib = _build.build("hlem_score")
-    print(f"[build] hlem_score.cu -> {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in Path(f"{lib}.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+    print(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in libs.items())} "
+          f"in {time.perf_counter() - t0:.1f} s (in parallel)")
+    for name, lib in libs.items():
+        for line in Path(f"{lib}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build]   {name}: {line.strip()}")
 
     # -- kernel against its plain version on the card ----------------------------
     rng = np.random.default_rng(0)
@@ -421,6 +622,192 @@ def main() -> int:
               f"allocations, device busy {busy / 1e3:.1f} ms, idle share "
               f"{1 - busy / 1e6 / wall_w:.4f}; {by_name}")
 
+    # -- attention and scan kernels against their plain versions ------------------
+    t0 = time.perf_counter()
+    att_err = check_attention(torch, rng, fa)
+    scan_err = check_scan(torch, rng, ss)
+    print(f"[check] flash_attention == plain version on {len(ATT_CASES)} cases "
+          f"(tol {ATT_TOL}, bit-equal reruns): max abs err {att_err}; "
+          f"ssm_scan == plain version on {len(SCAN_CASES)} cases + chunked == "
+          f"full (tol y/hT {SCAN_TOL}, bit-equal reruns): max abs err (y, hT) "
+          f"{scan_err}; {time.perf_counter() - t0:.1f} s")
+
+    # -- Hymba-1.5B serving at full width: the second main path -------------------
+    captured = {}
+    orig_attention, orig_scan = ops.attention, ops.selective_scan
+
+    def keep(*ts):
+        return tuple(None if t is None else t.clone(
+            memory_format=torch.contiguous_format) for t in ts)
+
+    def attention_tap(q, k, v, **kw):   # keeps the first call's inputs
+        out = orig_attention(q, k, v, **kw)
+        if "attention" not in captured:
+            captured["attention"] = (keep(q, k, v, out), kw)
+        return out
+
+    def scan_tap(*args):
+        out = orig_scan(*args)
+        if "scan" not in captured:
+            captured["scan"] = keep(*args, *out)
+        return out
+
+    ops.attention, ops.selective_scan = attention_tap, scan_tap
+    # the main path: counts set to 0 just before, read just after
+    hk.LAUNCHES = fa.LAUNCHES = ss.LAUNCHES = 0
+    try:
+        served = serve_launch.run(SERVE_ARGV)
+    finally:
+        ops.attention, ops.selective_scan = orig_attention, orig_scan
+    fa_launches, ss_launches = fa.LAUNCHES, ss.LAUNCHES
+    cfg, params = served["cfg"], served["params"]
+    n_prefill, steps = len(served["prefill_s"]), served["decode_steps"]
+    print(f"[serve] {cfg.name} at full width ({cfg.n_params():,} parameters, "
+          f"{cfg.dtype}): served {served['done']}/{served['requests']} requests, "
+          f"{n_prefill} prefills, {steps} decode steps, "
+          f"{served['interruptions']} request interruptions; kernel launches: "
+          f"flash_attention {fa_launches}, ssm_scan {ss_launches}")
+    if served["done"] != served["requests"]:
+        fail(f"served {served['done']}/{served['requests']} requests")
+    if fa_launches != cfg.n_layers * n_prefill or fa_launches <= 0:
+        fail(f"flash_attention launched {fa_launches} times, expected "
+             f"{cfg.n_layers} per prefill x {n_prefill}")
+    if ss_launches != cfg.n_layers * (n_prefill + steps) or ss_launches <= 0:
+        fail(f"ssm_scan launched {ss_launches} times, expected {cfg.n_layers} "
+             f"per prefill and per decode step x {n_prefill + steps}")
+    if hk.LAUNCHES != 0:
+        fail("the serve path launched the HLEM kernel")
+    b, s = 8, 2048
+    prefill_ms = statistics.median(served["prefill_s"]) * 1e3
+    decode_ms = sum(served["decode_s"]) / sum(served["decode_counts"]) * 1e3
+    print(f"[serve] prefill (B={b} x {s} tokens) {prefill_ms:.1f} ms median of "
+          f"{n_prefill} ({', '.join(f'{x * 1e3:.1f}' for x in served['prefill_s'])}"
+          f"); decode {decode_ms:.2f} ms per step (B={b}); "
+          f"{served['generated_tokens'] / served['wall_s']:.1f} generated "
+          f"tokens/s over the run ({served['generated_tokens']} tokens, "
+          f"{served['wall_s']:.2f} s wall, host clock with a synchronize at "
+          f"each prefill and batch end); peak memory "
+          f"{served['peak_bytes'] / 2**30:.2f} GiB; card {card}")
+
+    # captured first-layer prefill inputs: kernel against plain version
+    (q, k, v, att_out), att_kw = captured["attention"]
+    again = fa.flash_attention(q, k, v, **att_kw)
+    if not torch.equal(again, att_out):
+        fail("flash_attention on the captured inputs differs from the run")
+    err = (again.float() - fa.mha_ref(q, k, v, **att_kw).float()).abs().max().item()
+    if err > ATT_TOL["bfloat16"]:
+        fail(f"flash_attention on the captured layer-0 inputs: err {err:.3e}")
+    att_err["bfloat16"] = max(att_err["bfloat16"], err)
+    x, dtv, a, bb, c, d, h0, y_run, h_run = captured["scan"]
+    scan_args = (x, dtv, a, bb, c, d, h0)
+    got = ss.ssm_scan(*scan_args)
+    if not (torch.equal(got[0], y_run) and torch.equal(got[1], h_run)):
+        fail("ssm_scan on the captured inputs differs from the run")
+    ey, eh = compare_scan(torch, got, ss.ssm_scan_ref(*scan_args), "bfloat16",
+                          "ssm_scan on the captured layer-0 inputs")
+    scan_err["bfloat16"] = (max(scan_err["bfloat16"][0], ey),
+                            max(scan_err["bfloat16"][1], eh))
+    print(f"[check] on the captured layer-0 prefill inputs (q {tuple(q.shape)} "
+          f"{q.dtype}, x {tuple(x.shape)} {x.dtype}): flash_attention max abs "
+          f"err {err:.3e}, ssm_scan y {ey:.3e} hT {eh:.3e}; both bit-equal to "
+          f"the serve run's outputs")
+
+    # greedy tokens against a teacher-forced forward through the kernels,
+    # for every batch (the interrupted one up to its interruption)
+    n_first = n_agree = n_tokens = 0
+    for prompts, gen in served["batches"]:
+        with torch.inference_mode():
+            logits = forward(cfg, params,
+                             torch.cat([prompts, gen[:, :-1]], dim=1))
+        tf = logits[:, s - 1:].float()
+        del logits
+        if not torch.isfinite(tf).all():
+            fail("teacher-forced logits are not finite")
+        pred = tf.argmax(-1)
+        first_ok = pred[:, 0] == gen[:, 0]
+        gap = (tf[:, 0].max(-1).values
+               - tf[:, 0].gather(-1, gen[:, :1]).squeeze(-1))
+        if (~first_ok & (gap > NEAR_TIE)).any():
+            fail(f"first generated tokens {gen[:, 0].tolist()} != teacher-"
+                 f"forced argmax {pred[:, 0].tolist()} (gaps {gap.tolist()})")
+        n_first += int(first_ok.sum())
+        n_agree += int((pred == gen).sum())
+        n_tokens += gen.numel()
+        del tf
+    n_prompts = sum(g.shape[0] for _, g in served["batches"])
+    print(f"[serve] greedy vs teacher-forced forward over all "
+          f"{len(served['batches'])} batches: first token agrees for "
+          f"{n_first}/{n_prompts} prompts, share of all {n_tokens} generated "
+          f"tokens agreeing {n_agree / n_tokens:.4f}")
+
+    # kernel times at the main path's shapes (the captured layer-0 inputs)
+    att_window = att_kw["window"]
+    fa_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **att_kw), runs=50)
+    fa_plain = time_ms(torch, lambda: fa.mha_ref(q, k, v, **att_kw), runs=10,
+                       warmup=2)
+    qpos = torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(s, device="cuda")[None, :]
+    sdpa_mask = (kpos <= qpos) & (kpos > qpos - att_window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa_lib = time_ms(torch, lambda: sdpa(q, k, v, attn_mask=sdpa_mask,
+                                         enable_gqa=True), runs=50)
+    lib_err = (sdpa(q, k, v, attn_mask=sdpa_mask, enable_gqa=True).float()
+               - att_out.float()).abs().max().item()
+    fa_bound, fa_by, fa_flops = attention_bound(q, k, True, att_window)
+    print(f"[time] flash_attention {tuple(q.shape)} kv {tuple(k.shape)} "
+          f"{q.dtype} W={att_window}: kernel {fa_ms:.4f} ms "
+          f"({fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain:.4f} ms, "
+          f"scaled_dot_product_attention {fa_lib:.4f} ms (max abs diff to the "
+          f"kernel {lib_err:.3e}), bound {fa_bound:.4f} ms ({fa_by}); medians; "
+          f"card {card}")
+    ss_ms = time_ms(torch, lambda: ss.ssm_scan(*scan_args), runs=50)
+    ss_plain = time_ms(torch, lambda: ss.ssm_scan_ref(*scan_args), runs=3,
+                       warmup=1, prefill=False)
+    ss_bound, ss_by = scan_bound(x, a.shape[1], h0 is not None)
+    dec = scan_inputs(torch, rng, b, 1, x.shape[2], a.shape[1], True, "bfloat16")
+    ss_dec_ms = time_ms(torch, lambda: ss.ssm_scan(*dec), runs=100)
+    print(f"[time] ssm_scan x {tuple(x.shape)} {x.dtype} N={a.shape[1]}: kernel "
+          f"{ss_ms:.4f} ms, plain {ss_plain:.4f} ms (a loop over time), "
+          f"library none, bound {ss_bound:.4f} ms ({ss_by}); decode shape "
+          f"(T=1, with h0) kernel {ss_dec_ms:.4f} ms, bound "
+          f"{scan_bound(dec[0], a.shape[1], True)[0]:.6f} ms; medians; card {card}")
+    del q, k, v, att_out, again, captured
+
+    # where the device time goes in one prefill and 8 decode steps
+    from torch.profiler import ProfilerActivity, profile
+    prefill = make_prefill_step(cfg, s + 32)
+    step = make_serve_step(cfg)
+    prompts = served["batches"][-1][0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lg, st = prefill(params, prompts)
+        tok = lg.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(8):
+            lg, st = step(params, tok, st)
+            tok = lg[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    busy = device_busy_us(torch, prof)
+    groups = device_breakdown(torch, prof)
+    if busy is None:
+        print("[profile] the profiler recorded no device time: serve device "
+              "busy and idle share not measured")
+    else:
+        print(f"[profile] serve, one prefill (B={b} x {s}) + 8 decode steps "
+              f"under the profiler: wall {(t2 - t0) * 1e3:.1f} ms (prefill "
+              f"{(t1 - t0) * 1e3:.1f}, decode {(t2 - t1) * 1e3:.1f}), device "
+              f"busy {busy / 1e3:.1f} ms, idle share "
+              f"{1 - busy / 1e6 / (t2 - t0):.4f}; device ms by kernel family: "
+              + ", ".join(f"{g} {t:.1f}" for g, t in groups.items())
+              + f"; card {card}")
+        for name, ms, calls in top_kernels(torch, prof):
+            print(f"[profile]   {ms:9.2f} ms {calls:6d} calls  {name[:90]}")
+    del params, served, prefill, step, st, lg
+    torch.cuda.empty_cache()
+
     kernels = []
     for name, b, line, launches, err in (
             ("hlem_score", 1, 137, sim_launches, err_single),
@@ -433,6 +820,21 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:130",
+        "launches": fa_launches, "max_abs_err": max(att_err.values()),
+        "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
+        "bound_by": fa_by, "library_ms": fa_lib})
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:102",
+        "launches": ss_launches,
+        "max_abs_err": max(max(e) for e in scan_err.values()),
+        "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
+        "bound_by": ss_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

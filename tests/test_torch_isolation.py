@@ -21,6 +21,10 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.obs, repro_torch.market.trace\n"
+        "import repro_torch.models.model, repro_torch.models.weights\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.configs\n"
+        "repro_torch.configs.get_config('hymba_1_5b')\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

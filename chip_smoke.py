@@ -5,8 +5,12 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  It builds the port's kernels from ``src/repro_torch/kernels/
-csrc`` (one nvcc per source, in parallel), holds each against its plain
-PyTorch version on the card, and times it.  It drives two main paths:
+csrc`` (one nvcc per source, in parallel), counts the wgmma (``HGMMA``)
+instructions in each library's SASS (the bf16 flash-attention kernel must
+have some), prints the HLEM kernel's cluster size at the cluster's width
+(it must be above 1), holds each kernel against its plain PyTorch version
+on the card, and times it beside a launch floor (an empty kernel).  It
+drives two main paths:
 
 * the trace-driven spot-market simulation through the HLEM kernel (the
   paper's 60-machine quick trace and a 12,583-machine Google-trace-scale
@@ -60,8 +64,24 @@ ATT_CASES = [
     (1, 2, 1, 64, 64, 128, None, "bfloat16", True),
     (1, 5, 1, 70, 70, 16, 16, "float32", True),
     (1, 2, 2, 50, 50, 32, None, "float32", False),
+    # the tensor-core (bf16) kernel: every head dim, ragged Tq = Tk, Tq < Tk,
+    # Tq = 1, no mask, and a window narrower than a key tile
+    (1, 4, 2, 200, 200, 16, None, "bfloat16", True),
+    (1, 4, 2, 200, 200, 32, 64, "bfloat16", True),
+    (1, 4, 1, 300, 300, 128, 100, "bfloat16", True),
+    (1, 5, 1, 2047, 2047, 64, 1024, "bfloat16", True),
+    (1, 5, 1, 2049, 2049, 64, 1024, "bfloat16", True),
+    (1, 5, 1, 300, 1000, 64, 1024, "bfloat16", True),
+    (1, 4, 2, 1, 200, 64, None, "bfloat16", True),
+    (1, 2, 2, 50, 50, 32, None, "bfloat16", False),
+    (1, 4, 4, 200, 260, 128, None, "bfloat16", False),
+    (1, 5, 1, 70, 70, 16, 16, "bfloat16", True),
+    (1, 4, 2, 300, 300, 64, 16, "bfloat16", True),
     (8, 25, 5, 2048, 2048, 64, 1024, "bfloat16", True),
 ]
+# n where the HLEM kernel's cluster rule changes the cluster size (C = 1, 2,
+# 4, 8, 16 up to n = 1024, 2048, 4096, 8192, above), each with n - 1, n + 1
+HLEM_BOUNDARIES = [m + d for m in (1025, 2049, 4097, 8193) for d in (-1, 0, 1)]
 # b, t, dm, n, with_h0, dtype; then the model's prefill and decode shapes
 SCAN_CASES = [
     (2, 64, 128, 16, False, "float32"),
@@ -71,6 +91,16 @@ SCAN_CASES = [
     (8, 2048, 3200, 16, False, "bfloat16"),
     (8, 1, 3200, 16, True, "bfloat16"),
 ]
+
+
+def sass_count(lib, opcode):
+    """How many ``opcode`` instructions the SASS of a built library holds."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "--dump-sass", str(lib)],
+        check=True, capture_output=True, text=True).stdout
+    return sum(1 for line in sass.splitlines() if f" {opcode}" in line)
 
 
 def fail(msg: str) -> None:
@@ -302,7 +332,7 @@ def device_breakdown(torch, prof):
         if getattr(a, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         key = a.key.lower()
-        if "flash_attention_kernel" in key:
+        if "flash_attention_" in key:
             g = "flash_attention"
         elif "ssm_scan_kernel" in key:
             g = "ssm_scan"
@@ -349,6 +379,7 @@ def main() -> int:
 
     from repro_torch.core import SimConfig, hlem as core_hlem, make_policy
     from repro_torch.core import allocation as core_alloc
+    from repro_torch.core.hosts import HostPool
     from repro_torch.core.types import make_spot, resources
     from repro_torch.kernels import _build, hlem_score as hk, ops
     from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
@@ -375,11 +406,20 @@ def main() -> int:
         for line in Path(f"{lib}.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {name}: {line.strip()}")
+    hgmma = {name: sass_count(lib, "HGMMA") for name, lib in libs.items()}
+    print(f"[build] HGMMA (wgmma) instructions in the SASS: {hgmma}")
+    if hgmma["flash_attention"] == 0:
+        fail("the flash_attention library holds no HGMMA instruction")
+    cluster = hk.cluster_size(N_CLUSTER)
+    print(f"[build] hlem_score launches clusters of {cluster} CTAs per row at "
+          f"n={N_CLUSTER} (1 at the quick trace's n=60: {hk.cluster_size(60)})")
+    if cluster <= 1:
+        fail(f"hlem_score uses no thread-block cluster at n={N_CLUSTER}")
 
     # -- kernel against its plain version on the card ----------------------------
     rng = np.random.default_rng(0)
     err_single = err_batch = 0.0
-    for n in (1, 3, 100, 512, 513, 2000, N_CLUSTER):
+    for n in (1, 3, 100, 512, 513, 2000, *HLEM_BOUNDARIES, N_CLUSTER, 60_000):
         for alpha in (0.0, -0.5):
             free, masks, spot, _ = make_inputs(torch, rng, 1, n)
             out = hk.hlem_score(free, masks[0], spot, alpha)
@@ -396,7 +436,8 @@ def main() -> int:
     err_single = max(err_single, compare(
         torch, hk.hlem_score(free, masks[0], spot, -0.5)[None],
         hk.hlem_score_ref(free, masks[0], spot, -0.5)[None], masks, "degenerate"))
-    for b, n in ((1, 100), (4, 100), (3, 513), (8, 257), (64, N_CLUSTER)):
+    for b, n in ((1, 100), (4, 100), (3, 513), (8, 257), (64, N_CLUSTER),
+                 (2, 60_000), *((3, n) for n in HLEM_BOUNDARIES)):
         free, masks, spot, alphas = make_inputs(torch, rng, b, n, degen_col=3)
         if b > 1:
             masks[0] = False
@@ -415,6 +456,10 @@ def main() -> int:
           f"batch max_abs_err {err_batch:.3e}")
 
     # -- timing at the cluster's width ---------------------------------------------
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0))
+    print(f"[time] launch floor: an empty kernel (torch.cuda._sleep(0)) "
+          f"{floor_ms:.4f} ms on the device, timed as the kernels below; "
+          f"card {card}")
     timing = {}
     for b in (1, 64):
         free, masks, spot, alphas = make_inputs(torch, rng, b, N_CLUSTER)
@@ -435,7 +480,8 @@ def main() -> int:
         print(f"[time] n={N_CLUSTER} B={b}: kernel {k_ms:.4f} ms on the device "
               f"({k_call_ms:.4f} ms per call as the host sees it), plain "
               f"{p_ms:.4f} ms on the device ({p_call_ms:.4f} ms per call), "
-              f"bound {b_ms:.6f} ms ({b_by}), library none "
+              f"bound {b_ms:.6f} ms ({b_by}), launch floor {floor_ms:.4f} ms, "
+              f"library none "
               f"(no single PyTorch call computes HLEM scores); median of "
               f">= 50 runs; card {card}")
 
@@ -500,6 +546,8 @@ def main() -> int:
     spot_vms = [make_spot(10_000_000 + i, resources(c, c * 1536.0, 10.0, 1000.0),
                           3600.0) for i, c in enumerate(np.resize([1.0, 2.0, 4.0], 64))]
 
+    orig_place = HostPool.place
+
     def run_cluster(backend):
         policy = make_policy("hlem-vmp-adjusted", backend=backend)
         t0 = time.perf_counter()
@@ -526,7 +574,18 @@ def main() -> int:
     if not ((batch_hosts >= 0) & (batch_hosts < sim.pool.n)).all():
         fail(f"find_hosts_batch returned out-of-range hosts: {batch_hosts}")
 
-    sim_np, metrics_np, policy_np, wall_np = run_cluster("numpy")
+    # the numpy run records every placement, (VM id, host), in order
+    np_placed = []
+
+    def place_np(pool, vm, hid, now=0.0):
+        np_placed.append((vm.id, hid))
+        return orig_place(pool, vm, hid, now)
+
+    HostPool.place = place_np
+    try:
+        sim_np, metrics_np, policy_np, wall_np = run_cluster("numpy")
+    finally:
+        HostPool.place = orig_place
     nstats = trace_stats(sim_np, metrics_np)
     agree = nstats == cstats
     batch_np = policy_np.find_hosts_batch(spot_vms, sim_np.pool, horizon)
@@ -534,6 +593,8 @@ def main() -> int:
           f"{metrics_np.allocations}, {wall_np * 1e6 / max(metrics_np.allocations, 1):.1f}"
           f" us/allocation, spot {nstats['spot']}")
     print(f"[cluster] torch/cuda and numpy stats agree: {agree}; "
+          f"final pools equal: "
+          f"{bool(np.array_equal(sim.pool.free(), sim_np.pool.free()))}; "
           f"find_hosts_batch agrees: {bool((batch_np == batch_hosts).all())} "
           f"(a float32 near-tie may flip a pick at this size)")
 
@@ -561,7 +622,24 @@ def main() -> int:
                              out.clone()))
         return out
 
+    # the first placement that differs from the numpy run's, with the
+    # scorer's inputs that chose it (the pool is unchanged between the
+    # choice and the placement)
+    last_select, first_diff, n_placed = {}, {}, [0]
+
+    def place(pool, vm, hid, now=0.0):
+        i = n_placed[0]
+        n_placed[0] += 1
+        if not first_diff and (i >= len(np_placed) or np_placed[i] != (vm.id, hid)):
+            free, mask, spot, alpha = last_select["args"][:4]
+            first_diff.update(
+                i=i, vm=vm.id, host=hid,
+                np_host=next((h for v, h in np_placed[i:] if v == vm.id), None),
+                args=(free.copy(), np.array(mask), spot.copy(), float(alpha)))
+        return orig_place(pool, vm, hid, now)
+
     def select(*a, **k):
+        last_select["args"] = a
         t = time.perf_counter()
         r = orig_select(*a, **k)
         split["total"] += time.perf_counter() - t
@@ -569,12 +647,12 @@ def main() -> int:
         return r
 
     core_hlem.stage_to_device, ops.hlem_score = stage, score
-    core_alloc.hlem_select_torch = select
+    core_alloc.hlem_select_torch, HostPool.place = select, place
     try:
         sim_i, metrics_i, _, wall_i = run_cluster("torch")
     finally:
         core_hlem.stage_to_device, ops.hlem_score = orig_stage, orig_score
-        core_alloc.hlem_select_torch = orig_select
+        core_alloc.hlem_select_torch, HostPool.place = orig_select, orig_place
     calls = max(split["calls"], 1)
     argmax_sync = split["total"] - split["h2d"] - split["kernel"]
     alloc_i = max(metrics_i.allocations, 1)
@@ -587,6 +665,19 @@ def main() -> int:
           f"{split['kernel'] / alloc_i * 1e6:.1f} us, argmax+sync "
           f"{argmax_sync / alloc_i * 1e6:.1f} us, rest of the simulator "
           f"{(wall_i - split['total']) / alloc_i * 1e6:.1f} us")
+    if first_diff:   # a flipped pick, scored by the kernel and the oracle
+        free, mask, spot, alpha = first_diff["args"]
+        t, o = first_diff["host"], first_diff["np_host"]
+        f32 = core_hlem.hlem_scores_torch(free, mask, spot, alpha).cpu().numpy()
+        f64 = core_hlem.hlem_scores_np(free, mask, spot, alpha)
+        print(f"[cluster] first placement that differs from numpy's: "
+              f"#{first_diff['i']} of {n_placed[0]} (VM {first_diff['vm']}): "
+              f"torch/cuda host {t}, numpy host {o}; float32 kernel scores "
+              f"{float(f32[t])!r} vs "
+              f"{None if o is None else float(f32[o])!r}, float64 oracle "
+              f"{float(f64[t])!r} vs {None if o is None else float(f64[o])!r}")
+    else:
+        print(f"[cluster] all {n_placed[0]} placements equal the numpy run's")
     if len(captured) == 0:
         fail("instrumented cluster run captured no scoring calls")
     for i, (free, mask, spot, alpha, out) in enumerate(captured):

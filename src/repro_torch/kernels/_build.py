@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` into ``build/repro_torch/lib<name>-<hash>.so`` at the root
-of the checkout (the hash is of the source, so an edited kernel is never
-served from a stale library).  A C interface keeps PyTorch's headers out of
-the compile, which then takes seconds instead of minutes.  Nothing here runs
-at import time: the CPU-only test environment has no ``nvcc``.
+of the checkout.  The hash is of the source and of every shared header
+``csrc/*.cuh`` (which any source may include), so an edited kernel or
+header is never served from a stale library.  A C interface keeps
+PyTorch's headers out of the compile, which then takes seconds instead of
+minutes.  Nothing here runs at import time: the CPU-only test environment
+has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -35,8 +37,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,8 +1,11 @@
 """Flash attention for Hopper (GQA, causal, sliding window) and its plain
 PyTorch version.
 
-The kernel is ``csrc/flash_attention.cu`` (CUDA C++, ``sm_90a``), the port
-of the Pallas TPU kernel ``repro.kernels.flash_attention.flash_attention``.
+The kernels are in ``csrc/flash_attention.cu`` (CUDA C++, ``sm_90a``), the
+port of the Pallas TPU kernel ``repro.kernels.flash_attention.flash_attention``:
+bf16 inputs take the tensor-core kernel (wgmma, K/V fed by TMA), f32 inputs
+an f32 FMA kernel.  The note at the top of the source says what bounds each
+and how its design answers that.
 The plain version ``mha_ref`` has the semantics of the reference package's
 ``kernels/ref.py`` ``mha_ref``: q (B,H,Tq,dh), k/v (B,Hkv,Tk,dh), query head
 h reads kv head h // (H // Hkv), positions end-aligned (query i sits at
@@ -22,12 +25,14 @@ import torch
 from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry point for each input dtype
+_ENTRY = {torch.float32: "flash_attention_f32_launch",
+          torch.bfloat16: "flash_attention_bf16_launch"}
 
 #: number of kernel launches since the last reset (set it to 0 to reset)
 LAUNCHES = 0
 
-_LAUNCH_FN = None
+_LAUNCH_FNS = {}
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -55,16 +60,22 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.matmul(probs, vf).to(q.dtype)
 
 
-def _launch_fn():
-    global _LAUNCH_FN
-    if _LAUNCH_FN is None:
-        fn = _build.load_library("flash_attention").flash_attention_launch
+def _launch_fn(dtype: torch.dtype):
+    fn = _LAUNCH_FNS.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load_library("flash_attention"), _ENTRY[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _LAUNCH_FN = fn
-    return _LAUNCH_FN
+        _LAUNCH_FNS[dtype] = fn
+    return fn
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (TMA reads the bf16 inputs)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -72,8 +83,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Kernel path of ``mha_ref``: q (B,H,Tq,dh), k/v (B,Hkv,Tk,dh), one
     CUDA device, all f32 or all bf16, dh in ``HEAD_DIMS``, H % Hkv == 0 and
-    1 <= Tq <= Tk.  Non-contiguous inputs are copied.  Returns (B,H,Tq,dh)
-    in q's dtype."""
+    1 <= Tq <= Tk.  Non-contiguous or misaligned inputs are copied.
+    Returns (B,H,Tq,dh) in q's dtype."""
     global LAUNCHES
     device = q.device
     if device.type != "cuda":
@@ -92,21 +103,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
     if not 1 <= tq <= tk:
         raise ValueError(f"the kernel needs 1 <= Tq <= Tk, got Tq={tq}, Tk={tk}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != device or v.device != device:
         raise ValueError("q, k and v must be on one device")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     with torch.cuda.device(device):
-        err = _launch_fn()(
+        err = _launch_fn(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, hkv, tq, tk, dh, dh ** -0.5, int(causal),
-            0 if window is None else int(window), _DTYPES[q.dtype],
+            0 if window is None else int(window),
             torch.cuda.current_stream(device).cuda_stream)
+    if err >= 1000:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {err - 1000}")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {err}")

@@ -4,9 +4,10 @@ PyTorch version.
 The kernel is ``csrc/hlem_score.cu`` (CUDA C++, ``sm_90a``), the port of the
 Pallas TPU kernel ``repro.kernels.hlem_score`` (``hlem_score_pallas`` and
 ``hlem_score_pallas_batch``).  One kernel serves both entries: the batch
-wrapper launches one block per batch row, and the single-VM wrapper is the
-batch of one.  The note at the top of the source says what bounds it and
-how its design answers that.
+wrapper launches one thread-block cluster per batch row, and the single-VM
+wrapper is the batch of one.  The cluster's size depends on n alone
+(``cluster_size``).  The note at the top of the source says what bounds it
+and how its design answers that.
 
 The wrappers take CUDA tensors only and raise on anything else; choosing
 between the kernel and the plain version by device is ``ops``' job.
@@ -28,7 +29,7 @@ MAX_DIMS = 8
 #: number of kernel launches since the last reset (set it to 0 to reset)
 LAUNCHES = 0
 
-_LAUNCH_FN = None
+_LIB = None
 
 
 # ---------------------------------------------------------------------------
@@ -82,17 +83,25 @@ def hlem_score_batch_ref(free: torch.Tensor, masks: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the kernel's wrappers
 # ---------------------------------------------------------------------------
-def _launch_fn():
-    global _LAUNCH_FN
-    if _LAUNCH_FN is None:
-        fn = _build.load_library("hlem_score").hlem_score_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LAUNCH_FN = fn
-    return _LAUNCH_FN
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load_library("hlem_score")
+        lib.hlem_score_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.hlem_score_launch.restype = ctypes.c_int
+        lib.hlem_score_cluster_size.argtypes = [ctypes.c_int]
+        lib.hlem_score_cluster_size.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def cluster_size(n: int) -> int:
+    """The number of CTAs in the cluster that scores one row of n hosts, as
+    the kernel's library decides it (builds the library on first use)."""
+    return _lib().hlem_score_cluster_size(n)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtypes,
@@ -130,7 +139,7 @@ def _launch(free: torch.Tensor, masks: torch.Tensor, spot_frac: torch.Tensor,
     if b == 0 or n == 0:
         return out
     with torch.cuda.device(device):
-        err = _launch_fn()(
+        err = _lib().hlem_score_launch(
             free.data_ptr(), masks.view(torch.uint8).data_ptr(),
             spot_frac.data_ptr(),
             None if alphas is None else alphas.data_ptr(), float(alpha),

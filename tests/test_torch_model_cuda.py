@@ -36,6 +36,19 @@ def cuda():
     (1, 5, 1, 70, 70, 16, 16, torch.float32, True),
     (1, 2, 2, 50, 50, 32, None, torch.float32, False),
     (2, 25, 5, 300, 300, 64, 128, torch.bfloat16, True),
+    # the tensor-core (bf16) kernel at every head dim, ragged tiles, Tq < Tk,
+    # no mask, and a window narrower than a key tile
+    (1, 4, 2, 200, 200, 16, None, torch.bfloat16, True),
+    (1, 4, 2, 200, 200, 32, 64, torch.bfloat16, True),
+    (1, 4, 1, 300, 300, 128, 100, torch.bfloat16, True),
+    (1, 5, 1, 2047, 2047, 64, 1024, torch.bfloat16, True),
+    (1, 5, 1, 2049, 2049, 64, 1024, torch.bfloat16, True),
+    (1, 5, 1, 300, 1000, 64, 1024, torch.bfloat16, True),
+    (1, 4, 2, 1, 200, 64, None, torch.bfloat16, True),
+    (1, 2, 2, 50, 50, 32, None, torch.bfloat16, False),
+    (1, 4, 4, 200, 260, 128, None, torch.bfloat16, False),
+    (1, 5, 1, 70, 70, 16, 16, torch.bfloat16, True),
+    (1, 4, 2, 300, 300, 64, 16, torch.bfloat16, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, hkv, tq, tk, dh,
                                               window, dtype, causal):

@@ -82,7 +82,10 @@ ATT_CASES = [
 # n where the HLEM kernel's cluster rule changes the cluster size (C = 1, 2,
 # 4, 8, 16 up to n = 1024, 2048, 4096, 8192, above), each with n - 1, n + 1
 HLEM_BOUNDARIES = [m + d for m in (1025, 2049, 4097, 8193) for d in (-1, 0, 1)]
-# b, t, dm, n, with_h0, dtype; then the model's prefill and decode shapes
+# b, t, dm, n, with_h0, dtype[, scale of a]; then the model's prefill and
+# decode shapes; then the lane layout's edges: N not a multiple of the
+# 4-state lane group, T around the 32-step tile, Dm off the 32-channel block
+# (with and without 16-byte rows), and exp(dt * a) underflowing to 0
 SCAN_CASES = [
     (2, 64, 128, 16, False, "float32"),
     (1, 100, 96, 16, True, "float32"),
@@ -90,7 +93,18 @@ SCAN_CASES = [
     (2, 64, 128, 16, False, "bfloat16"),
     (8, 2048, 3200, 16, False, "bfloat16"),
     (8, 1, 3200, 16, True, "bfloat16"),
+    (2, 40, 128, 1, True, "float32"),
+    (2, 40, 128, 3, True, "bfloat16"),
+    (1, 50, 96, 33, True, "float32"),
+    (1, 33, 70, 64, True, "float32"),
+    (2, 31, 128, 16, True, "bfloat16"),
+    (2, 32, 128, 16, True, "bfloat16"),
+    (2, 33, 128, 16, True, "bfloat16"),
+    (2, 64, 200, 16, False, "bfloat16"),
+    (1, 40, 100, 16, True, "bfloat16"),
+    (2, 40, 128, 16, True, "float32", 1000.0),
 ]
+MUFU_PER_SM_CLOCK = 16         # Hopper's special-function unit: ex2 per SM per clock
 
 
 def sass_count(lib, opcode):
@@ -101,6 +115,26 @@ def sass_count(lib, opcode):
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "--dump-sass", str(lib)],
         check=True, capture_output=True, text=True).stdout
     return sum(1 for line in sass.splitlines() if f" {opcode}" in line)
+
+
+def ptxas_usage(lib, entry):
+    """(registers, spill store bytes, spill load bytes) that ``-Xptxas -v``
+    reported for the first kernel whose mangled name holds ``entry``."""
+    regs = stores = loads = None
+    inside = False
+    for line in Path(f"{lib}.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            if inside:
+                break
+            inside = entry in line
+        elif inside and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            stores, loads = nums[1], nums[2]
+        elif inside and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+    if regs is None:
+        fail(f"no ptxas report for a kernel named *{entry}* in {lib}.log")
+    return regs, stores, loads
 
 
 def fail(msg: str) -> None:
@@ -267,13 +301,14 @@ def check_attention(torch, rng, fa):
     return errs
 
 
-def scan_inputs(torch, rng, b, t, dm, n, with_h0, dt):
+def scan_inputs(torch, rng, b, t, dm, n, with_h0, dt, a_scale=1.0):
     dtype = getattr(torch, dt)
     f = lambda *s: rng.normal(0, 1, s).astype("float32")
     x = torch.from_numpy(f(b, t, dm)).to("cuda", dtype)
     dtv = torch.from_numpy(rng.uniform(0.001, 0.1, (b, t, dm)).astype(
         "float32")).to("cuda", dtype)
-    a = torch.from_numpy(-rng.uniform(0.1, 1, (dm, n)).astype("float32")).cuda()
+    a = torch.from_numpy((-rng.uniform(0.1, 1, (dm, n)) * a_scale).astype(
+        "float32")).cuda()
     bb = torch.from_numpy(f(b, t, n)).to("cuda", dtype)
     c = torch.from_numpy(f(b, t, n)).to("cuda", dtype)
     d = torch.from_numpy(f(dm)).cuda()
@@ -305,12 +340,13 @@ def check_scan(torch, rng, ss):
         args = scan_inputs(torch, rng, *case)
         out = ss.ssm_scan(*args)
         again = ss.ssm_scan(*args)
-        ey, eh = compare_scan(torch, out, ss.ssm_scan_ref(*args), case[-1],
+        dt = case[5]
+        ey, eh = compare_scan(torch, out, ss.ssm_scan_ref(*args), dt,
                               f"scan {case}")
         if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
             fail(f"scan {case}: two launches differ (not deterministic)")
-        e = errs[case[-1]]
-        errs[case[-1]] = (max(e[0], ey), max(e[1], eh))
+        e = errs[dt]
+        errs[dt] = (max(e[0], ey), max(e[1], eh))
     x, dtv, a, bb, c, d, _ = scan_inputs(torch, rng, 1, 64, 64, 16, False,
                                          "float32")
     y_full, h_full = ss.ssm_scan(x, dtv, a, bb, c, d)
@@ -393,6 +429,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    sm_clock_mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"devices {torch.cuda.device_count()}")
 
@@ -406,6 +445,11 @@ def main() -> int:
         for line in Path(f"{lib}.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {name}: {line.strip()}")
+    # the serve path's scan instantiation: bf16, S = 4 lanes per channel
+    scan_regs = ptxas_usage(libs["ssm_scan"], "ssm_scan_kernelI13__nv_bfloat16Li4E")
+    print(f"[build] ssm_scan kernel <bf16, S=4> (the serve shape's): "
+          f"{scan_regs[0]} registers, spill stores {scan_regs[1]} B, spill "
+          f"loads {scan_regs[2]} B")
     hgmma = {name: sass_count(lib, "HGMMA") for name, lib in libs.items()}
     print(f"[build] HGMMA (wgmma) instructions in the SASS: {hgmma}")
     if hgmma["flash_attention"] == 0:
@@ -857,11 +901,19 @@ def main() -> int:
     ss_bound, ss_by = scan_bound(x, a.shape[1], h0 is not None)
     dec = scan_inputs(torch, rng, b, 1, x.shape[2], a.shape[1], True, "bfloat16")
     ss_dec_ms = time_ms(torch, lambda: ss.ssm_scan(*dec), runs=100)
+    n_exp = x.numel() * a.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_ms = n_exp / (sms * MUFU_PER_SM_CLOCK * sm_clock_mhz * 1e6) * 1e3
     print(f"[time] ssm_scan x {tuple(x.shape)} {x.dtype} N={a.shape[1]}: kernel "
           f"{ss_ms:.4f} ms, plain {ss_plain:.4f} ms (a loop over time), "
-          f"library none, bound {ss_bound:.4f} ms ({ss_by}); decode shape "
-          f"(T=1, with h0) kernel {ss_dec_ms:.4f} ms, bound "
-          f"{scan_bound(dec[0], a.shape[1], True)[0]:.6f} ms; medians; card {card}")
+          f"library none, bound {ss_bound:.4f} ms ({ss_by}), MUFU floor "
+          f"{mufu_ms:.4f} ms ({n_exp:.3e} exps, one MUFU ex2 each, / ({sms} SMs x "
+          f"{MUFU_PER_SM_CLOCK} per clock x {sm_clock_mhz} MHz, clocks.max.sm)); "
+          f"decode shape (T=1, with h0) kernel {ss_dec_ms:.4f} ms, bound "
+          f"{scan_bound(dec[0], a.shape[1], True)[0]:.6f} ms, launch floor "
+          f"{floor_ms:.4f} ms; kernel <bf16, S=4> {scan_regs[0]} registers, "
+          f"spill stores {scan_regs[1]} B, spill loads {scan_regs[2]} B; "
+          f"medians; card {card}")
     del q, k, v, att_out, again, captured
 
     # where the device time goes in one prefill and 8 decode steps

@@ -74,17 +74,82 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, hkv, tq, tk, dh,
     (2, 64, 128, 16, False, torch.bfloat16),
     (2, 40, 100, 8, True, torch.float32),
     (1, 33, 70, 64, True, torch.float32),
+    # the lane layout: N not a multiple of the 4-state lane group, T below,
+    # at and above the 32-step tile, Dm off the 32-channel block with and
+    # without 16-byte rows, and the decode shape
+    (2, 40, 128, 1, True, torch.float32),
+    (2, 40, 128, 3, True, torch.bfloat16),
+    (1, 50, 96, 33, True, torch.float32),
+    (2, 31, 128, 16, True, torch.bfloat16),
+    (2, 32, 128, 16, True, torch.bfloat16),
+    (2, 33, 128, 16, True, torch.bfloat16),
+    (2, 64, 200, 16, False, torch.bfloat16),
+    (1, 40, 100, 16, True, torch.bfloat16),
+    (8, 1, 3200, 16, True, torch.bfloat16),
 ])
 def test_ssm_scan_kernel_matches_plain(cuda, b, t, dm, n, with_h0, dtype):
+    _check_scan_kernel(cuda, b, t, dm, n, with_h0, dtype)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_underflowing_decay(cuda):
+    """Large |a| * dt: exp(dt * a) underflows to 0 in the kernel."""
+    _check_scan_kernel(cuda, 2, 40, 128, 16, True, torch.float32, a_scale=1000.0)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_chunked_equals_full(cuda):
+    """Two kernel calls with the state carried between them == one."""
+    x, dt, a, bb, c, d, _ = _scan_inputs(cuda, 1, 64, 64, 16, False,
+                                         torch.float32)
+    y_full, h_full = ops.selective_scan(x, dt, a, bb, c, d)
+    y1, h1 = ops.selective_scan(x[:, :32], dt[:, :32], a, bb[:, :32],
+                                c[:, :32], d)
+    y2, h2 = ops.selective_scan(x[:, 32:], dt[:, 32:], a, bb[:, 32:],
+                                c[:, 32:], d, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=0, atol=1e-4)
+    torch.testing.assert_close(h2, h_full, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_unaligned_inputs(cuda, dtype):
+    """Contiguous inputs that start off a 16-byte boundary take the kernel's
+    plain-load staging and give the same bits as aligned copies."""
+    args = _scan_inputs(cuda, 2, 40, 128, 16, True, dtype)
+
+    def shifted(z):   # the same values, one element past an aligned start
+        if z is None:
+            return None
+        buf = torch.empty(z.numel() + 1, dtype=z.dtype, device=z.device)
+        out = buf[1:].view(z.shape)
+        out.copy_(z)
+        return out
+
+    moved = tuple(shifted(z) for z in args)
+    assert all(z is None or z.data_ptr() % 16 for z in moved)
+    y, h = ops.selective_scan(*args)
+    y2, h2 = ops.selective_scan(*moved)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def _scan_inputs(cuda, b, t, dm, n, with_h0, dtype, a_scale=1.0):
     rng = np.random.default_rng(0)
     f = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
     x = f(b, t, dm).to(cuda, dtype)
     dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, t, dm)).astype(
         np.float32)).to(cuda, dtype)
-    a = torch.from_numpy(-rng.uniform(0.1, 1, (dm, n)).astype(np.float32)).to(cuda)
+    a = torch.from_numpy((-rng.uniform(0.1, 1, (dm, n)) * a_scale).astype(
+        np.float32)).to(cuda)
     bb, c = f(b, t, n).to(cuda, dtype), f(b, t, n).to(cuda, dtype)
     d = f(dm).to(cuda)
     h0 = f(b, dm, n).to(cuda) if with_h0 else None
+    return x, dt, a, bb, c, d, h0
+
+
+def _check_scan_kernel(cuda, b, t, dm, n, with_h0, dtype, a_scale=1.0):
+    x, dt, a, bb, c, d, h0 = _scan_inputs(cuda, b, t, dm, n, with_h0, dtype,
+                                          a_scale)
     ss.LAUNCHES = 0
     y, h = ops.selective_scan(x, dt, a, bb, c, d, h0)
     y2, h2 = ops.selective_scan(x, dt, a, bb, c, d, h0)

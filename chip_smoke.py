@@ -35,6 +35,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
@@ -105,6 +107,19 @@ SCAN_CASES = [
     (2, 40, 128, 16, True, "float32", 1000.0),
 ]
 MUFU_PER_SM_CLOCK = 16         # Hopper's special-function unit: ex2 per SM per clock
+# the reference launcher's --market defaults (launch/market_sim.py): 4 pools,
+# 60 s ticks, advisor volatility, randomized bids floored at 0.45, the
+# ``market`` scenario (170 hosts), 14,400 s, seed 0; its default grid and
+# its --migration all comparison, then one resilience run
+MARKET_POOLS, MARKET_TICK, MARKET_UNTIL, MARKET_SEED = 4, 60.0, 14_400.0, 0
+MARKET_RUNS = ([(r, p, "none", None, None, MARKET_UNTIL)
+                for r in ("calm", "volatile", "correlated")
+                for p in ("first-fit", "hlem-vmp-adjusted")]
+               + [("volatile", "hlem-vmp-adjusted", m, None, None, MARKET_UNTIL)
+                  for m in ("greedy-cheapest", "gradient-aware", "risk-budgeted")]
+               + [("volatile", "first-fit", "none", "diversified", "storm", 7200.0)])
+FAN_TICKS, FAN_PATHS = 240, (64, 16_384)
+PRICE_RTOL = 1e-12             # float64 torch price paths vs the numpy loop, atol 0
 
 
 def sass_count(lib, opcode):
@@ -399,6 +414,402 @@ def trace_stats(sim, metrics):
                        for e in metrics.interruption_events]}
 
 
+def market_sim(tc, tm, regime, policy, migration, fleet, faults, backend,
+               device="cuda"):
+    """A ``--market`` run wired by hand as the reference's ``api.build`` wires
+    the ``market`` workload: a fresh engine from ``make_market`` (advisor
+    volatility), a migration planner always attached, randomized bids from
+    the first pool's config, hosts added with their pool ids.  The CPU tests
+    (``tests/test_torch_market_runs.py``) hold this wiring against the
+    reference's ``api.run_one``."""
+    seed = MARKET_SEED
+    engine = tm.MarketEngine(tm.make_market(
+        regime, n_pools=MARKET_POOLS, seed=seed, tick_interval=MARKET_TICK,
+        from_advisor=True))
+    fleet_mgr = injector = None
+    if fleet:
+        cfg = tm.FleetConfig(strategy=fleet, target_capacity=64.0)
+        tm.validate_fleet_config(cfg, MARKET_POOLS)
+        fleet_mgr = tm.make_fleet_manager(MARKET_POOLS, cfg)
+    if faults:   # horizon: the market workload's default, as the launcher's
+        injector = tm.make_fault_injector(faults, MARKET_POOLS, 14_400.0,
+                                          MARKET_TICK, seed)
+    kw = ({"alpha": -0.5, "backend": backend, "device": device}
+          if policy == "hlem-vmp-adjusted" else {})
+    sim = tc.MarketSimulator(
+        policy=tc.make_policy(policy, **kw),
+        config=tc.SimConfig(record_timeline=False), engine=engine,
+        migration=tm.make_migration_planner(migration), fleet=fleet_mgr,
+        faults=injector)
+    hosts, pool_ids, vms = tc.market_scenario(
+        tc.MarketScenarioConfig(seed=seed, n_pools=MARKET_POOLS))
+    tm.assign_bids(vms, tm.make_bid_strategy(
+        "randomized", pool_cfg=engine.config.pools[0], seed=seed, lo=0.45),
+        seed=seed)
+    for cap, pid in zip(hosts, pool_ids):
+        sim.add_host(cap, pool=pid)
+    for v in vms:
+        sim.submit(v)
+    return sim
+
+
+def market_row(tm, sim, metrics):
+    """The reference's ``api.build.collect_row`` engine keys (and its fleet
+    keys where a fleet is attached), plus the event streams."""
+    s = metrics.spot_stats(sim.vms)
+    ms = metrics.market_stats()
+    migs = metrics.migration_stats(sim.vms, sim.engine)
+    cost = tm.realized_cost_stats(sim.vms.values(), sim.engine, sim.pool)
+    row = {
+        "interruptions": s["interruptions"],
+        "price_interruptions": ms["price_interruptions"],
+        "waves": ms["waves"], "max_wave_size": ms["max_wave_size"],
+        "avg_interruption_time": s["avg_interruption_time"],
+        "max_interruption_time": s["max_interruption_time"],
+        "spot_finished": s["spot_finished"],
+        "spot_terminated": s["spot_terminated"],
+        "migrations": migs["completed"], "migrations_failed": migs["failed"],
+        "migration_downtime_s": migs["downtime_s"],
+        "predicted_saving": round(migs["predicted_saving"], 2),
+        "realized_saving": round(migs["realized_saving"], 2),
+        "realized_spot_cost": round(cost["spot_cost"], 4),
+        "savings_pct": round(cost["savings_pct"], 1),
+        "wasted_cost": round(cost["wasted_cost"], 4),
+        "allocations": metrics.allocations,
+    }
+    if sim.fleet is not None:
+        rs = metrics.resilience_stats(sim.vms, sim.engine, sim.pool)
+        row.update({
+            "time_below_target_s": round(rs["time_below_target"], 1),
+            "time_below_frac": round(rs["time_below_frac"], 4),
+            "shortfall_area": round(rs["shortfall_area"], 1),
+            "mean_recovery_s": round(rs["mean_recovery_s"], 1),
+            "max_recovery_s": round(rs["max_recovery_s"], 1),
+            "faults_fired": rs["faults_fired"],
+            "fleet_launches": rs["fleet_launches"],
+            "od_spill_launches": rs["od_spill_launches"],
+            "fleet_slots_retired": rs["slots_retired"],
+            "fleet_spot_cost": round(rs["fleet_spot_cost"], 4),
+            "od_spill_cost": round(rs["od_spill_cost"], 4),
+        })
+    return row, market_events(metrics)
+
+
+def market_events(metrics):
+    """A run's interruption, wave and migration event streams and its price
+    series."""
+    return {
+        "interruptions": [(e.vm_id, e.time, e.host, e.kind, str(e.cause))
+                          for e in metrics.interruption_events],
+        "waves": [(w.time, w.pool, w.price, w.size) for w in metrics.wave_events],
+        "migrations": [tuple(vars(m).values()) for m in metrics.migration_events],
+        "prices": metrics.price_series,
+    }
+
+
+class PlacementTap:
+    """Records every placement (VM id, host) while installed, and the host
+    time spent in the torch scorer's calls (staging, kernel, argmax and the
+    result's trip to the host).  Given the placements of another run, it
+    also keeps the first placement that differs from that run's, with the
+    HLEM scorer's inputs that chose it (the pool does not change between
+    the choice and the placement)."""
+
+    def __init__(self, host_pool_cls, core_alloc, other=None):
+        self.cls, self.alloc, self.other = host_pool_cls, core_alloc, other
+        self.placed, self.first_diff, self.last_select = [], {}, None
+        self.select_s, self.select_calls = 0.0, 0
+
+    def __enter__(self):
+        self.orig_place = orig_place = self.cls.place
+        self.orig_select = orig_select = self.alloc.hlem_select_torch
+
+        def place(pool, vm, hid, now=0.0):
+            i, other = len(self.placed), self.other
+            self.placed.append((vm.id, hid))
+            if (other is not None and not self.first_diff
+                    and (i >= len(other) or other[i] != (vm.id, hid))):
+                free, mask, spot, alpha = self.last_select[:4]
+                self.first_diff.update(
+                    i=i, vm=vm.id, host=hid,
+                    other_host=next((h for v, h in other[i:] if v == vm.id), None),
+                    args=(free.copy(), np.array(mask), spot.copy(), float(alpha)))
+            return orig_place(pool, vm, hid, now)
+
+        def select(*a, **k):
+            self.last_select = a
+            t = time.perf_counter()
+            r = orig_select(*a, **k)
+            self.select_s += time.perf_counter() - t
+            self.select_calls += 1
+            return r
+
+        self.cls.place, self.alloc.hlem_select_torch = place, select
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.place, self.alloc.hlem_select_torch = (self.orig_place,
+                                                        self.orig_select)
+        return False
+
+
+class ScoreTap:
+    """Keeps the inputs and the output of the first ``keep`` calls of
+    ``ops.<name>`` (the scorer entry the simulator calls) while installed.
+    The copies are queued on the call's stream, so they hold what the kernel
+    read and wrote even where a staging buffer is reused."""
+
+    def __init__(self, ops, name, keep=256):
+        self.ops, self.name, self.keep, self.calls = ops, name, keep, []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.ops, self.name)
+
+        def tap(*args):
+            out = orig(*args)
+            if len(self.calls) < self.keep:
+                self.calls.append(tuple(
+                    a.clone() if hasattr(a, "clone") else a for a in args)
+                    + (out.clone(),))
+            return out
+
+        setattr(self.ops, self.name, tap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.orig)
+        return False
+
+
+def tie_report(core_hlem, first_diff):
+    """The scores of the first placement that differs from the numpy run's:
+    (text, True where the float32 kernel ties the two hosts exactly while
+    the float64 oracle tells them apart)."""
+    free, mask, spot, alpha = first_diff["args"]
+    t, o = first_diff["host"], first_diff["other_host"]
+    f32 = core_hlem.hlem_scores_torch(free, mask, spot, alpha).cpu().numpy()
+    f64 = core_hlem.hlem_scores_np(free, mask, spot, alpha)
+    tie = o is not None and f32[t] == f32[o] and f64[t] != f64[o]
+    text = (f"#{first_diff['i']} (VM {first_diff['vm']}): torch/cuda host {t}, "
+            f"numpy host {o}; float32 kernel scores {float(f32[t])!r} vs "
+            f"{None if o is None else float(f32[o])!r}, float64 oracle "
+            f"{float(f64[t])!r} vs {None if o is None else float(f64[o])!r}")
+    return text, tie
+
+
+def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
+    """The dynamic spot market at the launcher's ``--market`` defaults.  Every
+    HLEM run goes twice, through the kernel (torch backend on the card) and
+    through the numpy float64 oracle; rows and event streams must be equal,
+    or part only at an exact float32 tie, which is printed.  The kernel is
+    held against its plain version on the first 256 scoring calls of each
+    kernel run and on the batch probe's call.  Returns the engine of the
+    volatile hlem-vmp-adjusted run (for the fan) and the largest absolute
+    errors of the single and batch checks."""
+    total_launches, fan_engine = 0, None
+    err_single = err_batch = 0.0
+    profiles = [p[:4] for p in tc.VM_PROFILES]   # cpu, ram, bw, storage
+    probe = [tc.make_spot(10_000_000 + i,
+                          tc.resources(*profiles[i % len(profiles)]), 3600.0)
+             for i in range(64)]
+    t_phase = time.perf_counter()
+    for regime, policy, mig, fleet, faults, until in MARKET_RUNS:
+        what = (f"{regime} {policy} migration={mig}"
+                + (f" fleet={fleet} faults={faults}" if fleet else "")
+                + f" until={until:.0f}")
+        hlem = policy.startswith("hlem")
+        runs = {}
+        for backend in (("numpy", "torch") if hlem else ("torch",)):
+            other = runs["numpy"][4] if backend == "torch" and hlem else None
+            sim = market_sim(tc, tm, regime, policy, mig, fleet, faults, backend)
+            with (PlacementTap(tc.HostPool, core_alloc, other) as tap,
+                  ScoreTap(ops, "hlem_score") as scored):
+                # the main path: counts set to 0 just before, read just after
+                hk.LAUNCHES = 0
+                t0 = time.perf_counter()
+                metrics = sim.run(until=until)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = hk.LAUNCHES
+            row, events = market_row(tm, sim, metrics)
+            runs[backend] = (sim, row, events, wall, tap.placed, tap.first_diff,
+                             launches, tap.select_s, tap.select_calls,
+                             scored.calls)
+        (sim, row, events, wall, _, first_diff, launches, select_s,
+         select_calls, captured) = runs["torch"]
+        alloc = max(row["allocations"], 1)
+        print(f"[market] {what}: wall {wall:.2f} s, allocations "
+              f"{row['allocations']}, HLEM launches {launches}, "
+              f"{wall * 1e6 / alloc:.1f} us/allocation"
+              + (f" (scoring calls {select_calls}, "
+                 f"{select_s * 1e6 / max(select_calls, 1):.1f} us each on the "
+                 f"host clock: staging + kernel + argmax + result to host, "
+                 f"{select_s / wall:.3f} of the wall; numpy backend: "
+                 f"{runs['numpy'][3]:.2f} s, "
+                 f"{runs['numpy'][3] * 1e6 / max(runs['numpy'][1]['allocations'], 1):.1f}"
+                 f" us/allocation)" if hlem else "")
+              + f"; interruptions {row['interruptions']} (price "
+              f"{row['price_interruptions']}) in {row['waves']} waves, "
+              f"migrations {row['migrations']}"
+              + (f", faults fired {row['faults_fired']}, fleet launches "
+                 f"{row['fleet_launches']}, mean recovery {row['mean_recovery_s']} s"
+                 if fleet else ""))
+        if not np.isfinite(np.array(list(row.values()), dtype=float)).all():
+            fail(f"market {what}: non-finite value in the row {row}")
+        if row["allocations"] <= 0 or row["interruptions"] <= 0:
+            fail(f"market {what}: no allocation or no interruption: {row}")
+        if fleet and (row["faults_fired"] <= 0 or row["fleet_launches"] <= 0):
+            fail(f"market {what}: the storm did not fire or the fleet did not "
+                 f"launch: {row}")
+        if not hlem:
+            if launches != 0:
+                fail(f"market {what}: {policy} launched the HLEM kernel")
+            continue
+        total_launches += launches
+        if launches <= 0:
+            fail(f"market {what}: the HLEM kernel was not launched")
+        _, row_np, events_np, _, placed_np = runs["numpy"][:5]
+        same = row == row_np and events == events_np
+        if first_diff:
+            text, tie = tie_report(core_hlem, first_diff)
+            print(f"[market]   first placement that differs from numpy's: {text}; "
+                  f"rows equal: {row == row_np}, event streams equal: "
+                  f"{events == events_np}")
+            if not tie:
+                fail(f"market {what}: the kernel's run departs from numpy's "
+                     f"other than at an exact float32 tie: {text}")
+        elif not same:
+            fail(f"market {what}: equal placements but rows or event streams "
+                 f"differ: {row} vs {row_np}")
+        else:
+            print(f"[market]   rows, event streams and all {len(placed_np)} "
+                  f"placements equal the numpy backend's")
+        # the kernel against its plain version on this run's own scoring
+        # calls (n = the scenario's hosts, identical hosts tying exactly)
+        if not captured:
+            fail(f"market {what}: no scoring call was captured")
+        err_run, ties = 0.0, 0
+        for i, (free, mask, spot, alpha, out) in enumerate(captured):
+            want = hk.hlem_score_ref(free, mask, spot, alpha)
+            err_run = max(err_run, compare(torch, out[None], want[None],
+                                           mask[None], f"market {what} call {i}"))
+            ties += int((out == out.max()).sum()) > 1
+        err_single = max(err_single, err_run)
+        print(f"[market]   kernel == plain version on the first {len(captured)} "
+              f"scoring calls (n={captured[0][0].shape[0]}, rtol {RTOL}, atol "
+              f"{ATOL}, same argmax; {ties} of them with an exact tie at the "
+              f"top): max_abs_err {err_run:.3e}")
+        # the batched kernel on the run's final pool: 64 VMs of the
+        # scenario's profiles, held against its plain version and the float64
+        # oracle's picks; a probe made after the run (the simulator's flush
+        # scores one row at a time and never reaches the batch kernel)
+        hk.LAUNCHES = 0
+        with ScoreTap(ops, "hlem_score_batch") as scored:
+            picked = sim.policy.find_hosts_batch(probe, sim.pool, until)
+        batch_launches = hk.LAUNCHES
+        np_sim = runs["numpy"][0]
+        if batch_launches <= 0 or not scored.calls:
+            fail(f"market {what}: find_hosts_batch did not launch the batch kernel")
+        for free, masks, spot, alphas, out in scored.calls:
+            want = hk.hlem_score_batch_ref(free, masks, spot, alphas)
+            err_run = compare(torch, out, want, masks, f"market {what} batch probe")
+            err_batch = max(err_batch, err_run)
+            print(f"[market]   batch kernel == plain version on the probe's "
+                  f"call (B={out.shape[0]}, n={out.shape[1]}): max_abs_err "
+                  f"{err_run:.3e}")
+        if not first_diff:
+            want = np_sim.policy.find_hosts_batch(probe, np_sim.pool, until)
+            n_same = int((picked == want).sum())
+            print(f"[market]   find_hosts_batch(64 VMs) on the final pool: "
+                  f"{batch_launches} batch launch(es), {n_same}/64 picks equal "
+                  f"the float64 oracle's")
+            if n_same != 64:
+                fail(f"market {what}: batched picks differ from the oracle's: "
+                     f"{picked.tolist()} vs {want.tolist()}")
+        if regime == "volatile" and mig == "none":
+            fan_engine = sim.engine
+    print(f"[market] {len(MARKET_RUNS)} runs ({sum(r[1].startswith('hlem') for r in MARKET_RUNS)}"
+          f" on both backends) in {time.perf_counter() - t_phase:.1f} s; HLEM "
+          f"kernel launches over the kernel runs {total_launches}; kernel vs "
+          f"plain version on the runs' own inputs: single max_abs_err "
+          f"{err_single:.3e}, batch {err_batch:.3e}; card {card}")
+
+    # device busy and idle share over one whole volatile run
+    from torch.profiler import ProfilerActivity, profile
+    sim = market_sim(tc, tm, "volatile", "hlem-vmp-adjusted", "none", None,
+                     None, "torch")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = sim.run(until=MARKET_UNTIL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_us(torch, prof)
+    if busy is None:
+        print("[profile] the profiler recorded no device time: market device "
+              "busy and idle share not measured")
+    else:
+        top = "; ".join(f"{name[:60]} {ms:.1f} ms ({calls} calls)"
+                        for name, ms, calls in top_kernels(torch, prof, 4))
+        print(f"[profile] market, volatile hlem-vmp-adjusted {MARKET_UNTIL:.0f} s "
+              f"under the profiler: wall {wall:.2f} s, {metrics.allocations} "
+              f"allocations, device busy {busy / 1e3:.1f} ms, idle share "
+              f"{1 - busy / 1e6 / wall:.4f}; {top}; card {card}")
+    return fan_engine, err_single, err_batch
+
+
+def rel_err(got, want):
+    """Largest |got - want| / |want| (0 where both are 0)."""
+    return float(np.max(np.abs(got - want)
+                        / np.maximum(np.abs(want), np.finfo(np.float64).tiny)))
+
+
+def run_fan(torch, tm, engine, card):
+    """Monte-Carlo price fans from the market engine's state, and the regime
+    comparison, on the card's float64 backend against the numpy loop."""
+    for n_paths in FAN_PATHS:
+        kw = dict(n_ticks=FAN_TICKS, n_paths=n_paths, seed=0)
+        t0 = time.perf_counter()
+        want = tm.simulated_price_fan(engine, **kw, backend="numpy")
+        t_np = time.perf_counter() - t0
+        tm.simulated_price_fan(engine, **kw, backend="torch")   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = tm.simulated_price_fan(engine, **kw, backend="torch")
+        t_torch = time.perf_counter() - t0
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"fan n_paths={n_paths}: {got.shape} vs {want.shape} or non-finite")
+        rel = rel_err(got, want)
+        if not np.allclose(got, want, rtol=PRICE_RTOL, atol=0):
+            fail(f"fan n_paths={n_paths}: max rel err {rel:.3e} > {PRICE_RTOL}")
+        print(f"[fan] simulated_price_fan({FAN_TICKS} ticks x {n_paths} paths x "
+              f"{engine.n_pools} pools): torch/cuda float64 {t_torch * 1e3:.1f} ms, "
+              f"numpy {t_np * 1e3:.1f} ms (host clock, shocks drawn and "
+              f"quantiles taken on the host in both); max rel err {rel:.3e} "
+              f"(rtol {PRICE_RTOL}, atol 0); card {card}")
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for fam, kwargs in ((tm.AUCTION_FAMILY, dict(shock_sigma=0.4, shock_rho=0.6, seed=3)),
+                        (tm.AUCTION_FAMILY, dict(shock_sigma=0.3, seed=5)),
+                        (tm.SMOOTHED_FAMILY, dict(alpha=0.15, max_step=0.04))):
+        utils, shocks = rng.uniform(0.0, 1.0, (50, 4)), rng.standard_normal((50, 4))
+        p_np, s_np = tm.simulate_price_paths(fam, fam.init([kwargs] * 4), utils, shocks)
+        p_t, s_t = tm.simulate_price_paths(fam, fam.init([kwargs] * 4), utils,
+                                           shocks, backend="torch")
+        for a, b in [(p_t, p_np)] + [(s_t[k], s_np[k]) for k in s_np]:
+            if not np.allclose(a, b, rtol=PRICE_RTOL, atol=0):
+                fail(f"price paths {fam.name} {kwargs}: torch/cuda differs "
+                     f"from numpy beyond rtol {PRICE_RTOL}")
+            worst = max(worst, rel_err(a, b))
+    claims = tm.regime_comparison(n=600, seed=0)
+    scan = tm.regime_comparison(n=600, seed=0, use_scan=True)
+    for k, v in claims.items():
+        if not abs(scan[k] - v) <= 1e-9 * abs(v):
+            fail(f"regime_comparison on the card: {k} {scan[k]!r} vs {v!r}")
+    print(f"[fan] simulate_price_paths on the card == numpy (both families, "
+          f"rtol {PRICE_RTOL}): max rel err {worst:.3e}; regime_comparison("
+          f"use_scan=True) on the card matches the scalar claims (rel 1e-9): {scan}")
+
+
 def main() -> int:
     import torch
 
@@ -411,7 +822,6 @@ def main() -> int:
               "it from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
 
     from repro_torch.core import SimConfig, hlem as core_hlem, make_policy
     from repro_torch.core import allocation as core_alloc
@@ -424,6 +834,8 @@ def main() -> int:
     from repro_torch.serve import make_prefill_step, make_serve_step
     from repro_torch.market.trace import (TraceConfig, generate_trace,
                                           simulate_trace)
+    import repro_torch.core as tc
+    import repro_torch.market as tm
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -590,8 +1002,6 @@ def main() -> int:
     spot_vms = [make_spot(10_000_000 + i, resources(c, c * 1536.0, 10.0, 1000.0),
                           3600.0) for i, c in enumerate(np.resize([1.0, 2.0, 4.0], 64))]
 
-    orig_place = HostPool.place
-
     def run_cluster(backend):
         policy = make_policy("hlem-vmp-adjusted", backend=backend)
         t0 = time.perf_counter()
@@ -619,17 +1029,8 @@ def main() -> int:
         fail(f"find_hosts_batch returned out-of-range hosts: {batch_hosts}")
 
     # the numpy run records every placement, (VM id, host), in order
-    np_placed = []
-
-    def place_np(pool, vm, hid, now=0.0):
-        np_placed.append((vm.id, hid))
-        return orig_place(pool, vm, hid, now)
-
-    HostPool.place = place_np
-    try:
+    with PlacementTap(HostPool, core_alloc) as np_tap:
         sim_np, metrics_np, policy_np, wall_np = run_cluster("numpy")
-    finally:
-        HostPool.place = orig_place
     nstats = trace_stats(sim_np, metrics_np)
     agree = nstats == cstats
     batch_np = policy_np.find_hosts_batch(spot_vms, sim_np.pool, horizon)
@@ -642,12 +1043,12 @@ def main() -> int:
           f"find_hosts_batch agrees: {bool((batch_np == batch_hosts).all())} "
           f"(a float32 near-tie may flip a pick at this size)")
 
-    # instrumented rerun: time split per scoring call, and the kernel held
-    # against its plain version on the first 256 scoring calls' inputs
-    split = {"h2d": 0.0, "kernel": 0.0, "total": 0.0, "calls": 0}
+    # instrumented rerun: time split per scoring call, the kernel held
+    # against its plain version on the first 256 scoring calls' inputs, and
+    # the first placement that differs from the numpy run's
+    split = {"h2d": 0.0, "kernel": 0.0}
     captured = []
     orig_stage, orig_score = core_hlem.stage_to_device, ops.hlem_score
-    orig_select = core_alloc.hlem_select_torch
 
     def stage(*a, **k):
         t = time.perf_counter()
@@ -666,41 +1067,16 @@ def main() -> int:
                              out.clone()))
         return out
 
-    # the first placement that differs from the numpy run's, with the
-    # scorer's inputs that chose it (the pool is unchanged between the
-    # choice and the placement)
-    last_select, first_diff, n_placed = {}, {}, [0]
-
-    def place(pool, vm, hid, now=0.0):
-        i = n_placed[0]
-        n_placed[0] += 1
-        if not first_diff and (i >= len(np_placed) or np_placed[i] != (vm.id, hid)):
-            free, mask, spot, alpha = last_select["args"][:4]
-            first_diff.update(
-                i=i, vm=vm.id, host=hid,
-                np_host=next((h for v, h in np_placed[i:] if v == vm.id), None),
-                args=(free.copy(), np.array(mask), spot.copy(), float(alpha)))
-        return orig_place(pool, vm, hid, now)
-
-    def select(*a, **k):
-        last_select["args"] = a
-        t = time.perf_counter()
-        r = orig_select(*a, **k)
-        split["total"] += time.perf_counter() - t
-        split["calls"] += 1
-        return r
-
     core_hlem.stage_to_device, ops.hlem_score = stage, score
-    core_alloc.hlem_select_torch, HostPool.place = select, place
     try:
-        sim_i, metrics_i, _, wall_i = run_cluster("torch")
+        with PlacementTap(HostPool, core_alloc, np_tap.placed) as tap:
+            sim_i, metrics_i, _, wall_i = run_cluster("torch")
     finally:
         core_hlem.stage_to_device, ops.hlem_score = orig_stage, orig_score
-        core_alloc.hlem_select_torch, HostPool.place = orig_select, orig_place
-    calls = max(split["calls"], 1)
-    argmax_sync = split["total"] - split["h2d"] - split["kernel"]
+    calls = max(tap.select_calls, 1)
+    argmax_sync = tap.select_s - split["h2d"] - split["kernel"]
     alloc_i = max(metrics_i.allocations, 1)
-    print(f"[split] {split['calls']} scoring calls for {metrics_i.allocations} "
+    print(f"[split] {tap.select_calls} scoring calls for {metrics_i.allocations} "
           f"allocations (wall {wall_i:.2f} s with a synchronize at each "
           f"boundary); per call: H2D copy {split['h2d'] / calls * 1e6:.1f} us, "
           f"kernel {split['kernel'] / calls * 1e6:.1f} us, argmax+sync "
@@ -708,20 +1084,13 @@ def main() -> int:
           f"{split['h2d'] / alloc_i * 1e6:.1f} us, kernel "
           f"{split['kernel'] / alloc_i * 1e6:.1f} us, argmax+sync "
           f"{argmax_sync / alloc_i * 1e6:.1f} us, rest of the simulator "
-          f"{(wall_i - split['total']) / alloc_i * 1e6:.1f} us")
-    if first_diff:   # a flipped pick, scored by the kernel and the oracle
-        free, mask, spot, alpha = first_diff["args"]
-        t, o = first_diff["host"], first_diff["np_host"]
-        f32 = core_hlem.hlem_scores_torch(free, mask, spot, alpha).cpu().numpy()
-        f64 = core_hlem.hlem_scores_np(free, mask, spot, alpha)
-        print(f"[cluster] first placement that differs from numpy's: "
-              f"#{first_diff['i']} of {n_placed[0]} (VM {first_diff['vm']}): "
-              f"torch/cuda host {t}, numpy host {o}; float32 kernel scores "
-              f"{float(f32[t])!r} vs "
-              f"{None if o is None else float(f32[o])!r}, float64 oracle "
-              f"{float(f64[t])!r} vs {None if o is None else float(f64[o])!r}")
+          f"{(wall_i - tap.select_s) / alloc_i * 1e6:.1f} us")
+    if tap.first_diff:   # a flipped pick, scored by the kernel and the oracle
+        text, tie = tie_report(core_hlem, tap.first_diff)
+        print(f"[cluster] first placement that differs from numpy's, of "
+              f"{len(tap.placed)}: {text} (exact float32 tie: {tie})")
     else:
-        print(f"[cluster] all {n_placed[0]} placements equal the numpy run's")
+        print(f"[cluster] all {len(tap.placed)} placements equal the numpy run's")
     if len(captured) == 0:
         fail("instrumented cluster run captured no scoring calls")
     for i, (free, mask, spot, alpha, out) in enumerate(captured):
@@ -756,6 +1125,12 @@ def main() -> int:
               f"profiler: wall {wall_w:.2f} s, {metrics_w.allocations} "
               f"allocations, device busy {busy / 1e3:.1f} ms, idle share "
               f"{1 - busy / 1e6 / wall_w:.4f}; {by_name}")
+
+    # -- the dynamic spot market (--market grid) and price fans: the third path --
+    fan_engine, err_m, err_mb = run_market(torch, tc, tm, hk, ops, core_alloc,
+                                           core_hlem, card)
+    err_single, err_batch = max(err_single, err_m), max(err_batch, err_mb)
+    run_fan(torch, tm, fan_engine, card)
 
     # -- attention and scan kernels against their plain versions ------------------
     t0 = time.perf_counter()

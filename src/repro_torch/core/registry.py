@@ -79,3 +79,15 @@ class Registry:
 
     def __repr__(self) -> str:
         return f"Registry({self.kind!r}, {list(self.entries)})"
+
+
+def named(name: str) -> Callable:
+    """Decorator that stamps a built-in plugin with its registry name as a
+    ``name`` attribute, for modules that register their built-ins by that
+    attribute (``REG.register(fn.name, fn)``) rather than by a string
+    literal: the determinism lint keys plugin names by literal across the
+    whole source tree, and the JAX package registers the same names."""
+    def _tag(target: Any) -> Any:
+        target.name = name
+        return target
+    return _tag

@@ -65,8 +65,15 @@ def hlem_score_ref(free: torch.Tensor, mask: torch.Tensor,
     d = free.shape[1]
     w = torch.where(gsum > _EPS, g / torch.where(gsum > _EPS, gsum, 1.0), 1.0 / d)
 
-    hs = c_std @ w
-    sl = spot_frac.to(torch.float32) @ w
+    # per-host dot products in a fixed order (k = 0..D-1), as the kernel
+    # sums them, so that equal hosts score equal wherever they sit: a BLAS
+    # matrix-vector product may round the rows past its last full block
+    # differently, which breaks the exact ties of a fleet of identical hosts
+    spot_frac = spot_frac.to(torch.float32)
+    hs = sl = 0.0
+    for k in range(d):
+        hs = hs + c_std[:, k] * w[k]
+        sl = sl + spot_frac[:, k] * w[k]
     hs = hs * (1.0 + alpha * sl)
     return torch.where(mask, hs, -_BIG)
 

@@ -20,7 +20,13 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
-        "import repro_torch.obs, repro_torch.market.trace\n"
+        "import repro_torch.obs, repro_torch.market, repro_torch.market.trace\n"
+        "import repro_torch.market.pools, repro_torch.market.advisor\n"
+        "import repro_torch.market.correlation\n"
+        "import repro_torch.market.price_process, repro_torch.market.engine\n"
+        "import repro_torch.market.bids, repro_torch.market.pricing\n"
+        "import repro_torch.market.risk, repro_torch.market.migration\n"
+        "import repro_torch.market.faults, repro_torch.market.fleet\n"
         "import repro_torch.models.model, repro_torch.models.weights\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.configs\n"

@@ -10,11 +10,18 @@ instructions in each library's SASS (the bf16 flash-attention kernel must
 have some), prints the HLEM kernel's cluster size at the cluster's width
 (it must be above 1), holds each kernel against its plain PyTorch version
 on the card, and times it beside a launch floor (an empty kernel).  It
-drives two main paths:
+drives these main paths:
 
 * the trace-driven spot-market simulation through the HLEM kernel (the
   paper's 60-machine quick trace and a 12,583-machine Google-trace-scale
   fleet), checked against the numpy backend;
+* the dynamic market at the launcher's ``--market`` defaults, each run a
+  spec built by ``repro_torch.api``, through the kernel and on the numpy
+  backend, and price fans on the card's float64 backend;
+* the port's entry point, ``python -m repro_torch.launch.market_sim``, in
+  subprocesses: a ``--spec`` sweep on 2 workers, a ``--profile
+  --events-out`` market run with ``--diff`` against the numpy backend's
+  log, and a ``--serve`` run, each equal to the numpy backend's;
 * Hymba-1.5B serving at full width (``repro_torch.launch.serve``: 16
   requests of 2048-token prompts and 32 generated tokens, batch 8, one
   hibernation), whose prefill attention and every selective scan run
@@ -28,6 +35,9 @@ JSON record of the kernels, the card's name and power limit, and
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -119,6 +129,48 @@ MARKET_RUNS = ([(r, p, "none", None, None, MARKET_UNTIL)
                   for m in ("greedy-cheapest", "gradient-aware", "risk-budgeted")]
                + [("volatile", "first-fit", "none", "diversified", "storm", 7200.0)])
 FAN_TICKS, FAN_PATHS = 240, (64, 16_384)
+# the [launch] phase: the example migration sweep cut to 2 seeds (2 regimes x
+# 2 migrations x 2 seeds at the market workload's 14,400 s) on 2 workers
+LAUNCH_SPEC = ROOT / "examples" / "specs" / "migration_sweep.json"
+LAUNCH_SEEDS, LAUNCH_WORKERS = [0, 1], 2
+LAUNCH_MARKET = ["--market", "--regimes", "volatile", "--policy",
+                 "hlem-vmp-adjusted"]
+LAUNCH_SERVE = ["--serve", "diurnal", "--regimes", "volatile",
+                "--fleet-target", "24", "--autoscale", "target-tracking",
+                "--policy", "hlem-vmp-adjusted", "--json"]
+# ``python -m repro_torch.launch.market_sim ARGS`` as ``-m`` runs it (runpy),
+# in a process that also reports the HLEM kernel's launches: the launcher's
+# process, and each sweep worker it forks, writes its count to a file named
+# by its pid in $LAUNCH_COUNTS after every run
+LAUNCHER = r"""
+import os, runpy
+from repro_torch.api import sweep
+from repro_torch.kernels import hlem_score as hk
+
+
+def count():
+    path = os.path.join(os.environ["LAUNCH_COUNTS"], str(os.getpid()))
+    with open(path, "w") as f:
+        f.write(str(hk.LAUNCHES))
+
+
+run_one = sweep.run_one
+
+
+def counted(*args, **kwargs):
+    row = run_one(*args, **kwargs)
+    count()
+    return row
+
+
+sweep.run_one = counted
+hk.LAUNCHES = 0
+try:
+    runpy.run_module("repro_torch.launch.market_sim", run_name="__main__",
+                     alter_sys=True)
+finally:
+    count()
+"""
 PRICE_RTOL = 1e-12             # float64 torch price paths vs the numpy loop, atol 0
 
 
@@ -414,97 +466,23 @@ def trace_stats(sim, metrics):
                        for e in metrics.interruption_events]}
 
 
-def market_sim(tc, tm, regime, policy, migration, fleet, faults, backend,
-               device="cuda"):
-    """A ``--market`` run wired by hand as the reference's ``api.build`` wires
-    the ``market`` workload: a fresh engine from ``make_market`` (advisor
-    volatility), a migration planner always attached, randomized bids from
-    the first pool's config, hosts added with their pool ids.  The CPU tests
-    (``tests/test_torch_market_runs.py``) hold this wiring against the
-    reference's ``api.run_one``."""
-    seed = MARKET_SEED
-    engine = tm.MarketEngine(tm.make_market(
-        regime, n_pools=MARKET_POOLS, seed=seed, tick_interval=MARKET_TICK,
-        from_advisor=True))
-    fleet_mgr = injector = None
-    if fleet:
-        cfg = tm.FleetConfig(strategy=fleet, target_capacity=64.0)
-        tm.validate_fleet_config(cfg, MARKET_POOLS)
-        fleet_mgr = tm.make_fleet_manager(MARKET_POOLS, cfg)
-    if faults:   # horizon: the market workload's default, as the launcher's
-        injector = tm.make_fault_injector(faults, MARKET_POOLS, 14_400.0,
-                                          MARKET_TICK, seed)
-    kw = ({"alpha": -0.5, "backend": backend, "device": device}
-          if policy == "hlem-vmp-adjusted" else {})
-    sim = tc.MarketSimulator(
-        policy=tc.make_policy(policy, **kw),
-        config=tc.SimConfig(record_timeline=False), engine=engine,
-        migration=tm.make_migration_planner(migration), fleet=fleet_mgr,
-        faults=injector)
-    hosts, pool_ids, vms = tc.market_scenario(
-        tc.MarketScenarioConfig(seed=seed, n_pools=MARKET_POOLS))
-    tm.assign_bids(vms, tm.make_bid_strategy(
-        "randomized", pool_cfg=engine.config.pools[0], seed=seed, lo=0.45),
-        seed=seed)
-    for cap, pid in zip(hosts, pool_ids):
-        sim.add_host(cap, pool=pid)
-    for v in vms:
-        sim.submit(v)
-    return sim
-
-
-def market_row(tm, sim, metrics):
-    """The reference's ``api.build.collect_row`` engine keys (and its fleet
-    keys where a fleet is attached), plus the event streams."""
-    s = metrics.spot_stats(sim.vms)
-    ms = metrics.market_stats()
-    migs = metrics.migration_stats(sim.vms, sim.engine)
-    cost = tm.realized_cost_stats(sim.vms.values(), sim.engine, sim.pool)
-    row = {
-        "interruptions": s["interruptions"],
-        "price_interruptions": ms["price_interruptions"],
-        "waves": ms["waves"], "max_wave_size": ms["max_wave_size"],
-        "avg_interruption_time": s["avg_interruption_time"],
-        "max_interruption_time": s["max_interruption_time"],
-        "spot_finished": s["spot_finished"],
-        "spot_terminated": s["spot_terminated"],
-        "migrations": migs["completed"], "migrations_failed": migs["failed"],
-        "migration_downtime_s": migs["downtime_s"],
-        "predicted_saving": round(migs["predicted_saving"], 2),
-        "realized_saving": round(migs["realized_saving"], 2),
-        "realized_spot_cost": round(cost["spot_cost"], 4),
-        "savings_pct": round(cost["savings_pct"], 1),
-        "wasted_cost": round(cost["wasted_cost"], 4),
-        "allocations": metrics.allocations,
-    }
-    if sim.fleet is not None:
-        rs = metrics.resilience_stats(sim.vms, sim.engine, sim.pool)
-        row.update({
-            "time_below_target_s": round(rs["time_below_target"], 1),
-            "time_below_frac": round(rs["time_below_frac"], 4),
-            "shortfall_area": round(rs["shortfall_area"], 1),
-            "mean_recovery_s": round(rs["mean_recovery_s"], 1),
-            "max_recovery_s": round(rs["max_recovery_s"], 1),
-            "faults_fired": rs["faults_fired"],
-            "fleet_launches": rs["fleet_launches"],
-            "od_spill_launches": rs["od_spill_launches"],
-            "fleet_slots_retired": rs["slots_retired"],
-            "fleet_spot_cost": round(rs["fleet_spot_cost"], 4),
-            "od_spill_cost": round(rs["od_spill_cost"], 4),
-        })
-    return row, market_events(metrics)
-
-
-def market_events(metrics):
-    """A run's interruption, wave and migration event streams and its price
-    series."""
-    return {
-        "interruptions": [(e.vm_id, e.time, e.host, e.kind, str(e.cause))
-                          for e in metrics.interruption_events],
-        "waves": [(w.time, w.pool, w.price, w.size) for w in metrics.wave_events],
-        "migrations": [tuple(vars(m).values()) for m in metrics.migration_events],
-        "prices": metrics.price_series,
-    }
+def market_spec(ta, regime, policy, migration, fleet, faults, backend,
+                device="cuda"):
+    """A ``--market`` run as the launcher specifies it: the ``market``
+    workload (170 hosts) under advisor volatility, randomized bids floored
+    at 0.45, the HLEM policy's ``backend`` on ``device``."""
+    params = ({"alpha": -0.5, "backend": backend, "device": device}
+              if policy == "hlem-vmp-adjusted" else {})
+    return ta.RunSpec(
+        scenario=ta.ScenarioSpec(
+            workload="market", regime=regime, n_pools=MARKET_POOLS,
+            tick_interval=MARKET_TICK, from_advisor=True,
+            bid=ta.BidSpec("randomized", {"lo": 0.45})),
+        policy=ta.PolicySpec(policy, params),
+        migration=ta.MigrationSpec(migration),
+        fleet=(ta.FleetSpec(fleet, {"target_capacity": 64.0})
+               if fleet else None),
+        faults=ta.FaultSpec(faults) if faults else None)
 
 
 class PlacementTap:
@@ -597,15 +575,19 @@ def tie_report(core_hlem, first_diff):
     return text, tie
 
 
-def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
-    """The dynamic spot market at the launcher's ``--market`` defaults.  Every
-    HLEM run goes twice, through the kernel (torch backend on the card) and
-    through the numpy float64 oracle; rows and event streams must be equal,
+def run_market(torch, ta, tc, hk, ops, core_alloc, core_hlem, card):
+    """The dynamic spot market at the launcher's ``--market`` defaults, each
+    run a spec built and collected by ``repro_torch.api``.  Every HLEM run
+    goes twice, through the kernel (torch backend on the card) and through
+    the numpy float64 oracle; rows and event streams must be equal,
     or part only at an exact float32 tie, which is printed.  The kernel is
     held against its plain version on the first 256 scoring calls of each
     kernel run and on the batch probe's call.  Returns the engine of the
-    volatile hlem-vmp-adjusted run (for the fan) and the largest absolute
-    errors of the single and batch checks."""
+    volatile hlem-vmp-adjusted run (for the fan), the largest absolute
+    errors of the single and batch checks, and the kernel's launches over
+    the kernel runs."""
+    from repro_torch.api.build import event_streams
+
     total_launches, fan_engine = 0, None
     err_single = err_batch = 0.0
     profiles = [p[:4] for p in tc.VM_PROFILES]   # cpu, ram, bw, storage
@@ -621,7 +603,8 @@ def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
         runs = {}
         for backend in (("numpy", "torch") if hlem else ("torch",)):
             other = runs["numpy"][4] if backend == "torch" and hlem else None
-            sim = market_sim(tc, tm, regime, policy, mig, fleet, faults, backend)
+            spec = market_spec(ta, regime, policy, mig, fleet, faults, backend)
+            sim = ta.build(spec, MARKET_SEED)
             with (PlacementTap(tc.HostPool, core_alloc, other) as tap,
                   ScoreTap(ops, "hlem_score") as scored):
                 # the main path: counts set to 0 just before, read just after
@@ -631,7 +614,8 @@ def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = hk.LAUNCHES
-            row, events = market_row(tm, sim, metrics)
+            row = ta.collect_row(sim, metrics, spec, MARKET_SEED)
+            events = event_streams(metrics)
             runs[backend] = (sim, row, events, wall, tap.placed, tap.first_diff,
                              launches, tap.select_s, tap.select_calls,
                              scored.calls)
@@ -654,7 +638,9 @@ def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
               + (f", faults fired {row['faults_fired']}, fleet launches "
                  f"{row['fleet_launches']}, mean recovery {row['mean_recovery_s']} s"
                  if fleet else ""))
-        if not np.isfinite(np.array(list(row.values()), dtype=float)).all():
+        if not np.isfinite(np.array([v for v in row.values()
+                                     if not isinstance(v, str)],
+                                    dtype=float)).all():
             fail(f"market {what}: non-finite value in the row {row}")
         if row["allocations"] <= 0 or row["interruptions"] <= 0:
             fail(f"market {what}: no allocation or no interruption: {row}")
@@ -736,8 +722,8 @@ def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
 
     # device busy and idle share over one whole volatile run
     from torch.profiler import ProfilerActivity, profile
-    sim = market_sim(tc, tm, "volatile", "hlem-vmp-adjusted", "none", None,
-                     None, "torch")
+    sim = ta.build(market_spec(ta, "volatile", "hlem-vmp-adjusted", "none",
+                               None, None, "torch"), MARKET_SEED)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         metrics = sim.run(until=MARKET_UNTIL)
@@ -754,7 +740,7 @@ def run_market(torch, tc, tm, hk, ops, core_alloc, core_hlem, card):
               f"under the profiler: wall {wall:.2f} s, {metrics.allocations} "
               f"allocations, device busy {busy / 1e3:.1f} ms, idle share "
               f"{1 - busy / 1e6 / wall:.4f}; {top}; card {card}")
-    return fan_engine, err_single, err_batch
+    return fan_engine, err_single, err_batch, total_launches
 
 
 def rel_err(got, want):
@@ -810,6 +796,154 @@ def run_fan(torch, tm, engine, card):
           f"use_scan=True) on the card matches the scalar claims (rel 1e-9): {scan}")
 
 
+def launch(argv, work, name, timeout=600):
+    """Runs ``python -m repro_torch.launch.market_sim *argv`` from the root
+    of the checkout in a fresh process group (see ``LAUNCHER``), killed
+    with its sweep workers if it outlives ``timeout`` s; fails on a
+    non-zero exit.  Returns (stdout, stderr, wall s, HLEM kernel launches of
+    the launcher and its sweep workers)."""
+    counts = work / f"counts_{name}"
+    counts.mkdir()
+    path = str(ROOT / "src")
+    if os.environ.get("PYTHONPATH"):
+        path += os.pathsep + os.environ["PYTHONPATH"]
+    env = dict(os.environ, LAUNCH_COUNTS=str(counts), PYTHONPATH=path)
+    what = f"python -m repro_torch.launch.market_sim {' '.join(argv)}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", LAUNCHER, *argv],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"launch {name}: {what} ran past {timeout} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"launch {name}: {what} exited {proc.returncode}:\n"
+             f"{out[-3000:]}\n{err[-3000:]}")
+    launches = sum(int(f.read_text()) for f in counts.iterdir())
+    return out, err, wall, launches
+
+
+def strip_wall(row):
+    return {k: v for k, v in row.items() if k != "wall_s"}
+
+
+def run_launch(ta, kind, card):
+    """The port's entry point on the card, ``python -m repro_torch.launch.
+    market_sim``, in subprocesses (so the sweep's forked workers never meet
+    the CUDA context this process holds): a ``--spec`` sweep on 2 workers
+    through the kernel and on the numpy backend, whose report cells must be
+    equal and whose kernel report's manifest must name the card; one
+    ``--market --profile --events-out`` run, whose row and event log (by the
+    launcher's ``--diff``) must equal the numpy backend's; and one
+    ``--serve`` run, whose row must equal the numpy backend's.  The numpy
+    counterparts of the single runs are the same specs run here through
+    ``repro_torch.api``.  Returns the HLEM kernel's launches on this path."""
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "launch"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # 1. the spec sweep, through the kernel and on the numpy backend
+    spec = json.loads(LAUNCH_SPEC.read_text())
+    spec["seeds"] = LAUNCH_SEEDS
+    reports, walls, launches = {}, {}, {}
+    for backend in ("torch", "numpy"):
+        spec["policies"][0]["params"]["backend"] = backend
+        path = work / f"sweep_{backend}.json"
+        path.write_text(json.dumps(spec))
+        report = work / f"report_{backend}.json"
+        _, _, walls[backend], launches[backend] = launch(
+            ["--spec", str(path), "--workers", str(LAUNCH_WORKERS),
+             "--report", str(report), "--fresh"], work, f"sweep_{backend}")
+        if not report.is_file():
+            fail(f"launch sweep ({backend}): no report at {report}")
+        reports[backend] = json.loads(report.read_text())
+    if launches["torch"] <= 0 or launches["numpy"] != 0:
+        fail(f"launch sweep: HLEM kernel launches {launches} (kernel, numpy)")
+    total = launches["torch"]
+    n_runs = reports["torch"]["n_runs"]
+    device = reports["torch"]["manifest"].get("device")
+    print(f"[launch] --spec {LAUNCH_SPEC.relative_to(ROOT)} cut to seeds "
+          f"{LAUNCH_SEEDS} ({n_runs} runs at {reports['torch']['horizon']} s) "
+          f"on {LAUNCH_WORKERS} workers: kernel {walls['torch']:.1f} s "
+          f"({walls['torch'] * LAUNCH_WORKERS / n_runs:.2f} s a run per "
+          f"worker, {total} HLEM kernel launches), numpy backend "
+          f"{walls['numpy']:.1f} s ({walls['numpy'] * LAUNCH_WORKERS / n_runs:.2f}"
+          f" s a run per worker); host clock, process start included; "
+          f"manifest device {device!r}; card {card}")
+    if reports["torch"]["cells"] != reports["numpy"]["cells"]:
+        fail("launch sweep: the kernel's report cells differ from the numpy "
+             "backend's")
+    if device != kind:
+        fail(f"launch sweep: the report's manifest names {device!r}, not the "
+             f"card {kind!r}")
+    print(f"[launch]   report cells equal the numpy backend's "
+          f"({len(reports['torch']['cells'])} cells)")
+
+    # 2. one market run with the profile and the event log
+    log = work / "market_torch.ndjson"
+    out, err, wall, n_launch = launch(
+        LAUNCH_MARKET + ["--profile", "--events-out", str(log), "--json"],
+        work, "market")
+    total += n_launch
+    row = strip_wall(json.loads(out)["rows"][0])
+    if "subsystem" not in err:
+        fail(f"launch market: --profile printed no table:\n{err[-3000:]}")
+    table = err[err.index("subsystem"):].split("\n# wrote")[0].splitlines()
+    print(f"[launch] {' '.join(LAUNCH_MARKET)} --profile --events-out: wall "
+          f"{wall:.1f} s (host clock, process start included), allocations "
+          f"{row['allocations']}, HLEM kernel launches {n_launch}; profile "
+          f"(host clock; card {card}):")
+    for line in table:
+        print(f"[launch]   {line}")
+    spec = market_spec(ta, "volatile", "hlem-vmp-adjusted", "none", None,
+                       None, "numpy").replace(obs=ta.ObsSpec(events=True))
+    sim = ta.build(spec, MARKET_SEED)
+    metrics = sim.run(until=MARKET_UNTIL)
+    row_np = ta.collect_row(sim, metrics, spec, MARKET_SEED)
+    log_np = work / "market_numpy.ndjson"
+    sim.events.save(str(log_np))
+    if n_launch <= 0:
+        fail("launch market: the HLEM kernel was not launched")
+    if row != row_np:
+        fail(f"launch market: the kernel's row differs from the numpy "
+             f"backend's: {row} vs {row_np}")
+    out, _, _, _ = launch(["--diff", str(log), str(log_np)], work, "diff")
+    print(f"[launch]   row equals the numpy backend's; --diff of the two "
+          f"event logs ({len(sim.events)} events): {out.strip()}")
+
+    # 3. one serve run through the kernel
+    out, _, wall, n_launch = launch(LAUNCH_SERVE, work, "serve")
+    total += n_launch
+    row = strip_wall(json.loads(out)["rows"][0])
+    spec = ta.RunSpec(
+        scenario=ta.ScenarioSpec(workload="serve-diurnal", regime="volatile",
+                                 n_pools=MARKET_POOLS,
+                                 tick_interval=MARKET_TICK, horizon=MARKET_UNTIL),
+        policy=ta.PolicySpec("hlem-vmp-adjusted",
+                             {"alpha": -0.5, "backend": "numpy"}),
+        fleet=ta.FleetSpec("diversified", {"target_capacity": 24.0}),
+        serve=ta.ServeSpec(), autoscale=ta.AutoscaleSpec("target-tracking"))
+    row_np = ta.run_one(spec, MARKET_SEED, until=MARKET_UNTIL)
+    print(f"[launch] {' '.join(LAUNCH_SERVE)}: wall {wall:.1f} s, requests "
+          f"{row['requests_done']}/{row['requests_arrived']}, SLO attainment "
+          f"{row['slo_attainment']}, HLEM kernel launches {n_launch}; row "
+          f"equals the numpy backend's: {row == row_np}")
+    if n_launch <= 0:
+        fail("launch serve: the HLEM kernel was not launched")
+    if row != row_np:
+        fail(f"launch serve: the kernel's row differs from the numpy "
+             f"backend's: {row} vs {row_np}")
+    print(f"[launch] phase wall {time.perf_counter() - t_phase:.1f} s; HLEM "
+          f"kernel launches on the launcher's path {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -834,6 +968,7 @@ def main() -> int:
     from repro_torch.serve import make_prefill_step, make_serve_step
     from repro_torch.market.trace import (TraceConfig, generate_trace,
                                           simulate_trace)
+    import repro_torch.api as ta
     import repro_torch.core as tc
     import repro_torch.market as tm
 
@@ -1127,10 +1262,15 @@ def main() -> int:
               f"{1 - busy / 1e6 / wall_w:.4f}; {by_name}")
 
     # -- the dynamic spot market (--market grid) and price fans: the third path --
-    fan_engine, err_m, err_mb = run_market(torch, tc, tm, hk, ops, core_alloc,
+    fan_engine, err_m, err_mb, market_launches = run_market(
+        torch, ta, tc, hk, ops, core_alloc,
                                            core_hlem, card)
     err_single, err_batch = max(err_single, err_m), max(err_batch, err_mb)
     run_fan(torch, tm, fan_engine, card)
+
+    # -- the port's entry point, python -m repro_torch.launch.market_sim ---------
+    # the main path: each launcher process counts from 0 and reports its count
+    launch_launches = run_launch(ta, kind, card)
 
     # -- attention and scan kernels against their plain versions ------------------
     t0 = time.perf_counter()
@@ -1326,9 +1466,15 @@ def main() -> int:
     del params, served, prefill, step, st, lg
     torch.cuda.empty_cache()
 
+    # the single-VM kernel's launches over its main paths: the cluster trace,
+    # the --market runs and the launcher's runs
+    hlem_launches = sim_launches + market_launches + launch_launches
+    print(f"[check] hlem_score launches on the main paths: cluster trace "
+          f"{sim_launches}, --market runs {market_launches}, launcher "
+          f"{launch_launches}; total {hlem_launches}")
     kernels = []
     for name, b, line, launches, err in (
-            ("hlem_score", 1, 137, sim_launches, err_single),
+            ("hlem_score", 1, 137, hlem_launches, err_single),
             ("hlem_score_batch", 64, 195, batch_launches, err_batch)):
         k_ms, p_ms, b_ms, b_by = timing[b]
         kernels.append({

@@ -31,6 +31,15 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.configs\n"
         "repro_torch.configs.get_config('hymba_1_5b')\n"
+        "import repro_torch.serve.demand, repro_torch.serve.autoscale\n"
+        "import repro_torch.serve.slo, repro_torch.serve.service\n"
+        "import repro_torch.api, repro_torch.api.registry\n"
+        "import repro_torch.api.workloads, repro_torch.api.specs\n"
+        "import repro_torch.api.build, repro_torch.api.sweep\n"
+        "import repro_torch.obs.manifest, repro_torch.obs.diff\n"
+        "import repro_torch.obs.analyze, repro_torch.obs.report\n"
+        "import repro_torch.obs.export, repro_torch.obs.profile\n"
+        "import repro_torch.obs.sanitize, repro_torch.launch.market_sim\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -51,3 +60,22 @@ def test_no_jax_or_repro_import(path):
             found.append(node.module or "")
     bad = [m for m in found if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_serve_package_leaves_the_model_stack_unloaded():
+    """The serve market side, the spec layer and the launcher import
+    without the model stack: ``serve.engine`` loads on first use only."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serve, repro_torch.api\n"
+        "import repro_torch.launch.market_sim\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.startswith(('repro_torch.models',\n"
+        "                              'repro_torch.serve.engine'))))\n"
+        "repro_torch.serve.make_serve_step\n"
+        "print('repro_torch.models.model' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["[]", "True"]

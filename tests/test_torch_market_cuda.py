@@ -6,29 +6,33 @@ event streams must equal the numpy backend's.  Skips without a CUDA device.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_market_cuda.py
 """
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-import repro_torch.core as tc
+import repro_torch.api as ta
 import repro_torch.market as tm
+from repro_torch.api.build import event_streams
 from repro_torch.kernels import hlem_score as hk
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke as cs  # noqa: E402
 
 RTOL = 1e-12
 UNTIL = 2400.0
 
 
 def _run(backend):
-    """The volatile ``hlem-vmp-adjusted`` run of ``chip_smoke``'s grid."""
-    sim = cs.market_sim(tc, tm, "volatile", "hlem-vmp-adjusted", "none", None,
-                        None, backend)
-    return cs.market_row(tm, sim, sim.run(until=UNTIL))
+    """The volatile ``hlem-vmp-adjusted`` run of the launcher's ``--market``
+    grid on ``backend`` (torch: the HLEM kernel on the card): its row and
+    event streams."""
+    spec = ta.RunSpec(
+        scenario=ta.ScenarioSpec(
+            workload="market", regime="volatile", n_pools=4,
+            tick_interval=60.0, from_advisor=True,
+            bid=ta.BidSpec("randomized", {"lo": 0.45})),
+        policy=ta.PolicySpec("hlem-vmp-adjusted",
+                             {"alpha": -0.5, "backend": backend}))
+    sim = ta.build(spec, 0)
+    metrics = sim.run(until=UNTIL)
+    return ta.collect_row(sim, metrics, spec, 0), event_streams(metrics)
 
 
 @pytest.fixture

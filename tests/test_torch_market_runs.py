@@ -1,74 +1,72 @@
-"""Market runs of the port end to end against the JAX package's
-``repro.api.run_one`` wiring: the reference launcher's ``--market`` grid
-(4 pools, 60 s ticks, advisor volatility, randomized bids floored at 0.45,
-the ``market`` scenario of 170 hosts), cut to a 2,400 s horizon here (the
-full 14,400 s runs on the card in ``chip_smoke.py``).
+"""Market runs of the port end to end against the JAX package: the
+reference launcher's ``--market`` grid (4 pools, 60 s ticks, advisor
+volatility, randomized bids floored at 0.45, the ``market`` scenario of 170
+hosts), cut to a 2,400 s horizon here (the full 14,400 s runs on the card in
+``chip_smoke.py``).
 
-The port has no ``api`` package yet, so ``chip_smoke.py`` wires each run by
-hand as ``repro.api.build`` wires a ``market`` workload and assembles the
-row as ``repro.api.build.collect_row`` does; these tests hold that wiring,
-on the port's numpy and torch-CPU backends, against ``repro``.  Rows and
-event streams are held equal (``==``): the host side is the reference's
+Each run is one spec, built and run by ``repro_torch.api`` on the port's
+numpy and torch-CPU backends and by ``repro.api`` in the reference; rows
+(``collect_row``) and event streams (``repro_torch.api.build.
+event_streams``) are held equal (``==``): the host side is the reference's
 numpy float64.
 """
 import math
-import sys
-from pathlib import Path
 
 import pytest
 
-import repro_torch.core as tc
-import repro_torch.market as tm
-from repro.api import (BidSpec, FaultSpec, FleetSpec, MigrationSpec,
-                       PolicySpec, RunSpec, ScenarioSpec)
-from repro.api.build import build, collect_row
+import repro.api as ra
+import repro_torch.api as ta
+from repro_torch.api.build import event_streams
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke as cs  # noqa: E402
-
-N_POOLS, TICK, SEED = cs.MARKET_POOLS, cs.MARKET_TICK, cs.MARKET_SEED
+N_POOLS, TICK, SEED = 4, 60.0, 0
 UNTIL = 2400.0
 # the first storm of the ``storm`` scenario fires at 3,600 s
 UNTIL_STORM = 4200.0
 
 
-def _policy_params(policy):
+def _spec(api, regime, policy, migration, fleet, faults, params):
+    """The launcher's ``--market`` run as a spec of ``api``."""
+    return api.RunSpec(
+        scenario=api.ScenarioSpec(
+            workload="market", regime=regime, n_pools=N_POOLS,
+            tick_interval=TICK, from_advisor=True,
+            bid=api.BidSpec("randomized", {"lo": 0.45})),
+        policy=api.PolicySpec(policy, params),
+        migration=api.MigrationSpec(migration),
+        fleet=(api.FleetSpec(fleet, {"target_capacity": 64.0})
+               if fleet else None),
+        faults=api.FaultSpec(faults) if faults else None)
+
+
+def _run(api, spec, until):
+    sim = api.build(spec, SEED)
+    metrics = sim.run(until=until)
+    return api.collect_row(sim, metrics, spec, SEED), event_streams(metrics)
+
+
+def _alpha(policy):
     return {"alpha": -0.5} if policy == "hlem-vmp-adjusted" else {}
 
 
 def reference_run(regime, policy, until, migration="none", fleet=None,
                   faults=None, backend=None):
-    """``repro.api.run_one`` for the launcher's ``--market`` spec, keeping
-    the simulator so its event streams can be read too."""
-    params = _policy_params(policy)
+    """``repro.api`` for the launcher's ``--market`` spec."""
+    params = _alpha(policy)
     if backend is not None:
         params["backend"] = backend
-    spec = RunSpec(
-        scenario=ScenarioSpec(
-            workload="market", regime=regime, n_pools=N_POOLS,
-            tick_interval=TICK, from_advisor=True,
-            bid=BidSpec("randomized", {"lo": 0.45})),
-        policy=PolicySpec(policy, params),
-        migration=MigrationSpec(migration),
-        fleet=(FleetSpec(fleet, {"target_capacity": 64.0})
-               if fleet else None),
-        faults=FaultSpec(faults) if faults else None)
-    sim = build(spec, SEED)
-    metrics = sim.run(until=until)
-    return collect_row(sim, metrics, spec, SEED), cs.market_events(metrics)
+    return _run(ra, _spec(ra, regime, policy, migration, fleet, faults,
+                          params), until)
 
 
 def port_run(regime, policy, until, migration="none", fleet=None,
              faults=None, backend="numpy", device="cpu"):
-    """The same run from ``repro_torch``, wired by hand by ``chip_smoke.py``
-    (the wiring the card runs), its row keyed as ``collect_row`` keys it."""
-    sim = cs.market_sim(tc, tm, regime, policy, migration, fleet, faults,
-                        backend, device)
-    metrics = sim.run(until=until)
-    row, events = cs.market_row(tm, sim, metrics)
-    row = {"policy": policy, "regime": regime, "migration": migration,
-           "seed": SEED, **row}
-    return row, events
+    """The same spec through ``repro_torch.api``: the wiring the card runs
+    (``chip_smoke.py`` and ``python -m repro_torch.launch.market_sim``)."""
+    params = _alpha(policy)
+    if policy.startswith("hlem"):
+        params.update(backend=backend, device=device)
+    return _run(ta, _spec(ta, regime, policy, migration, fleet, faults,
+                          params), until)
 
 
 def _check(port, ref):

@@ -27,6 +27,17 @@ drives these main paths:
   hibernation), whose prefill attention and every selective scan run
   through the flash-attention and scan kernels, checked against a
   teacher-forced forward.
+* granite-moe-3b-a800m serving at full width (8 requests, batch 8,
+  2048-token prompts): the MoE block, and the flash kernel at a causal
+  GQA-3 shape;
+* training at full width through ``make_train_step(impl="xla")``
+  (Hymba-1.5B, 4 steps; granite-moe, one step), the eval step through the
+  kernels against the plain functions, and ``python -m
+  repro_torch.launch.train`` at smoke size: a restart from its checkpoint
+  against a straight run, and ``--elastic``;
+* the elastic layer's scheduling (``simulate_worker_availability`` at 256
+  workers, a ``ClusterScheduler`` sequence) through the HLEM kernel,
+  checked against the numpy backend.
 
 Any failed check ends the run with a non-zero exit.  The last lines are a
 JSON record of the kernels, the card's name and power limit, and
@@ -52,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain version, float32 both
 N_CLUSTER = 12_583             # machines in the Google cluster trace
+CLUSTER_DAYS = 0.0025          # 216 s of it (cut from 432 s for the time limit)
 QUICK_PINNED = {"vms": 2582, "allocations": 3205, "interruptions": 623,
                 "max_interruption_s": 364, "redeployed": 249}
 KERNEL_SOURCES = ("hlem_score", "flash_attention", "ssm_scan")
@@ -120,19 +132,24 @@ MUFU_PER_SM_CLOCK = 16         # Hopper's special-function unit: ex2 per SM per 
 # the reference launcher's --market defaults (launch/market_sim.py): 4 pools,
 # 60 s ticks, advisor volatility, randomized bids floored at 0.45, the
 # ``market`` scenario (170 hosts), 14,400 s, seed 0; its default grid and
-# its --migration all comparison, then one resilience run
+# its --migration all comparison, then one resilience run.  The grid's runs
+# are cut to 3,600 s (a quarter of the default horizon) to keep the script
+# inside half its time limit; the storm run keeps its 7,200 s, the profiled
+# run and the launcher's 14,400 s
 MARKET_POOLS, MARKET_TICK, MARKET_UNTIL, MARKET_SEED = 4, 60.0, 14_400.0, 0
-MARKET_RUNS = ([(r, p, "none", None, None, MARKET_UNTIL)
+MARKET_GRID_UNTIL = 3_600.0
+MARKET_RUNS = ([(r, p, "none", None, None, MARKET_GRID_UNTIL)
                 for r in ("calm", "volatile", "correlated")
                 for p in ("first-fit", "hlem-vmp-adjusted")]
-               + [("volatile", "hlem-vmp-adjusted", m, None, None, MARKET_UNTIL)
+               + [("volatile", "hlem-vmp-adjusted", m, None, None,
+                   MARKET_GRID_UNTIL)
                   for m in ("greedy-cheapest", "gradient-aware", "risk-budgeted")]
                + [("volatile", "first-fit", "none", "diversified", "storm", 7200.0)])
 FAN_TICKS, FAN_PATHS = 240, (64, 16_384)
-# the [launch] phase: the example migration sweep cut to 2 seeds (2 regimes x
-# 2 migrations x 2 seeds at the market workload's 14,400 s) on 2 workers
+# the [launch] phase: the example migration sweep cut to 1 seed (2 regimes x
+# 2 migrations at the market workload's 14,400 s) on 2 workers
 LAUNCH_SPEC = ROOT / "examples" / "specs" / "migration_sweep.json"
-LAUNCH_SEEDS, LAUNCH_WORKERS = [0, 1], 2
+LAUNCH_SEEDS, LAUNCH_WORKERS = [0], 2
 LAUNCH_MARKET = ["--market", "--regimes", "volatile", "--policy",
                  "hlem-vmp-adjusted"]
 LAUNCH_SERVE = ["--serve", "diurnal", "--regimes", "volatile",
@@ -172,6 +189,61 @@ finally:
     count()
 """
 PRICE_RTOL = 1e-12             # float64 torch price paths vs the numpy loop, atol 0
+# granite-moe-3b-a800m at full width: 8 requests of 2048-token prompts, batch 8
+MOE_ARGV = ["--arch", "granite_moe_3b_a800m", "--requests", "8", "--batch", "8",
+            "--prompt-len", "2048", "--gen-tokens", "32"]
+# training at full width through make_train_step(impl="xla"): Hymba-1.5B,
+# AdamW, 4 steps at B = 8 x 512; then one granite-moe step at B = 4 x 512
+TRAIN_HYMBA = ("hymba_1_5b", 8, 512, 4)
+TRAIN_MOE = ("granite_moe_3b_a800m", 4, 512, 1)
+# the eval loss through the kernels vs the plain functions (bf16, 32
+# layers), an end-to-end check beside the kernels' element-wise ones on the
+# eval step's captured inputs: the scan's bf16 output tolerance, the looser
+# of the two kernels'
+EVAL_ATOL = 5e-2
+# the training launcher at smoke size: 8 steps straight vs 4 + a restart
+# from the checkpoint for 4 more (losses at rtol 1e-5, as the reference's
+# restart test holds them), and --elastic under two simulated interruptions
+TRAIN_ARGV = ["--arch", "hymba_1_5b", "--smoke", "--device", "cuda",
+              "--batch", "4", "--seq-len", "24", "--log-every", "1"]
+RESTART_RTOL = 1e-5
+ELASTIC_ARGV = TRAIN_ARGV + ["--elastic", "--steps", "20", "--seed", "3"]
+# the worker fleet of simulate_worker_availability: 256 spot workers under
+# heavy on-demand churn (contention 100: ~600 arrivals over the horizon)
+AVAIL_WORKERS, AVAIL_HORIZON, AVAIL_CONTENTION = 256, 3600.0, 100.0
+# ``python -m repro_torch.launch.train ARGS`` as ``-m`` runs it, recording
+# every step's loss (printed as the last line) and the HLEM kernel's
+# launches (to $LAUNCH_COUNTS/<pid>, as LAUNCHER does)
+TRAIN_LAUNCHER = r"""
+import json, os, runpy
+from repro_torch.kernels import hlem_score as hk
+from repro_torch.train import train_step as ts
+
+losses = []
+make = ts.make_train_step
+
+
+def recorded(*args, **kwargs):
+    step = make(*args, **kwargs)
+
+    def run(state, batch):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+    return run
+
+
+ts.make_train_step = recorded
+hk.LAUNCHES = 0
+try:
+    runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                     alter_sys=True)
+finally:
+    with open(os.path.join(os.environ["LAUNCH_COUNTS"], str(os.getpid())),
+              "w") as f:
+        f.write(str(hk.LAUNCHES))
+    print(json.dumps({"losses": losses}))
+"""
 
 
 def sass_count(lib, opcode):
@@ -796,21 +868,22 @@ def run_fan(torch, tm, engine, card):
           f"use_scan=True) on the card matches the scalar claims (rel 1e-9): {scan}")
 
 
-def launch(argv, work, name, timeout=600):
-    """Runs ``python -m repro_torch.launch.market_sim *argv`` from the root
-    of the checkout in a fresh process group (see ``LAUNCHER``), killed
-    with its sweep workers if it outlives ``timeout`` s; fails on a
-    non-zero exit.  Returns (stdout, stderr, wall s, HLEM kernel launches of
-    the launcher and its sweep workers)."""
+def launch(argv, work, name, timeout=600, code=LAUNCHER,
+           module="repro_torch.launch.market_sim"):
+    """Runs ``python -m <module> *argv`` (``code``: ``LAUNCHER`` or
+    ``TRAIN_LAUNCHER``) from the root of the checkout in a fresh process
+    group, killed with its sweep workers if it outlives ``timeout`` s;
+    fails on a non-zero exit.  Returns (stdout, stderr, wall s, HLEM kernel
+    launches of the launcher and its sweep workers)."""
     counts = work / f"counts_{name}"
     counts.mkdir()
     path = str(ROOT / "src")
     if os.environ.get("PYTHONPATH"):
         path += os.pathsep + os.environ["PYTHONPATH"]
     env = dict(os.environ, LAUNCH_COUNTS=str(counts), PYTHONPATH=path)
-    what = f"python -m repro_torch.launch.market_sim {' '.join(argv)}"
+    what = f"python -m {module} {' '.join(argv)}"
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", LAUNCHER, *argv],
+    proc = subprocess.Popen([sys.executable, "-c", code, *argv],
                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
@@ -944,6 +1017,442 @@ def run_launch(ta, kind, card):
     return total
 
 
+class KernelTap:
+    """Keeps the first call's inputs and outputs of ``ops.attention`` and of
+    ``ops.selective_scan`` (the model's entries to the two kernels) while
+    installed: ``attention`` is ((q, k, v, out), kwargs), ``scan`` is
+    (x, dt, a, b, c, d, h0, y, hT); None where the op was not called."""
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+        self.attention = self.scan = None
+
+    def keep(self, *ts):
+        return tuple(None if t is None else t.clone(
+            memory_format=self.torch.contiguous_format) for t in ts)
+
+    def __enter__(self):
+        self.orig = orig_att, orig_scan = (self.ops.attention,
+                                           self.ops.selective_scan)
+
+        def attention(q, k, v, **kw):
+            out = orig_att(q, k, v, **kw)
+            if self.attention is None:
+                self.attention = (self.keep(q, k, v, out), kw)
+            return out
+
+        def scan(*args):
+            out = orig_scan(*args)
+            if self.scan is None:
+                self.scan = self.keep(*args, *out)
+            return out
+
+        self.ops.attention, self.ops.selective_scan = attention, scan
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attention, self.ops.selective_scan = self.orig
+        return False
+
+
+def check_tapped(torch, fa, ss, tap, what):
+    """The kernels on the first call's inputs that ``tap`` kept: against
+    the run's own outputs (bit-equal) and element-wise against their plain
+    versions (``ATT_TOL``, ``SCAN_TOL``, bf16).  Returns the attention
+    error and the scan's (y, hT) errors, None for an op the run never
+    called."""
+    att_err = scan_err = None
+    found = []
+    if tap.attention is not None:
+        (q, k, v, out), kw = tap.attention
+        again = fa.flash_attention(q, k, v, **kw)
+        if not torch.equal(again, out):
+            fail(f"{what}: flash_attention on the captured inputs differs "
+                 f"from the run")
+        att_err = (again.float()
+                   - fa.mha_ref(q, k, v, **kw).float()).abs().max().item()
+        if att_err > ATT_TOL["bfloat16"]:
+            fail(f"{what}: flash_attention on the captured layer-0 inputs: "
+                 f"max abs err {att_err:.3e} > {ATT_TOL['bfloat16']}")
+        found.append(f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} "
+                     f"{q.dtype} {kw}: max abs err {att_err:.3e}")
+    if tap.scan is not None:
+        *args, y_run, h_run = tap.scan
+        got = ss.ssm_scan(*args)
+        if not (torch.equal(got[0], y_run) and torch.equal(got[1], h_run)):
+            fail(f"{what}: ssm_scan on the captured inputs differs from the run")
+        scan_err = compare_scan(torch, got, ss.ssm_scan_ref(*args), "bfloat16",
+                                f"{what}: ssm_scan on the captured layer-0 "
+                                f"inputs")
+        found.append(f"ssm_scan x {tuple(args[0].shape)} {args[0].dtype}, h0 "
+                     f"{'given' if args[6] is not None else 'none'}: max abs "
+                     f"err y {scan_err[0]:.3e} hT {scan_err[1]:.3e}")
+    print(f"[check] {what}, kernels on the run's captured layer-0 inputs "
+          f"against their plain versions: " + "; ".join(found)
+          + "; bit-equal to the run's outputs")
+    return att_err, scan_err
+
+
+def run_moe(torch, ops, fa, ss, hk, serve_launch, forward, card):
+    """granite-moe-3b-a800m served at its published width through
+    ``repro_torch.launch.serve`` (every prefill attention through the flash
+    kernel, the MoE block plain tensor code as in the reference): all
+    requests served, first greedy tokens equal to a teacher-forced forward
+    over the prompts (the same token groups as the prefill), that forward
+    bit-equal across two runs, and the kernel held against its plain
+    version and timed at this prefill's shape (GQA group 3, causal, no
+    window).  Returns the flash kernel's launches on the path and its
+    largest error here."""
+    # the main path: counts set to 0 just before, read just after
+    hk.LAUNCHES = fa.LAUNCHES = ss.LAUNCHES = 0
+    with KernelTap(torch, ops) as tap:
+        served = serve_launch.run(MOE_ARGV)
+    fa_launches, ss_launches = fa.LAUNCHES, ss.LAUNCHES
+    (q, k, v, att_out), att_kw = tap.attention
+    cfg, params = served["cfg"], served["params"]
+    n_prefill, steps = len(served["prefill_s"]), served["decode_steps"]
+    print(f"[moe] {cfg.name} at full width ({cfg.n_params():,} parameters, "
+          f"{cfg.n_active_params():,} active, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, {cfg.dtype}): served "
+          f"{served['done']}/{served['requests']} requests, {n_prefill} "
+          f"prefills, {steps} decode steps; kernel launches: flash_attention "
+          f"{fa_launches}, ssm_scan {ss_launches}")
+    if served["done"] != served["requests"]:
+        fail(f"moe: served {served['done']}/{served['requests']} requests")
+    if fa_launches != cfg.n_layers * n_prefill or ss_launches or hk.LAUNCHES:
+        fail(f"moe: kernel launches flash {fa_launches} (expected "
+             f"{cfg.n_layers} x {n_prefill}), scan {ss_launches}, hlem "
+             f"{hk.LAUNCHES} (expected 0)")
+    b, s = q.shape[0], q.shape[2]
+    prefill_ms = statistics.median(served["prefill_s"]) * 1e3
+    decode_ms = sum(served["decode_s"]) / sum(served["decode_counts"]) * 1e3
+    print(f"[moe] prefill (B={b} x {s} tokens) {prefill_ms:.1f} ms (the run's "
+          f"first, cold); decode {decode_ms:.2f} ms per step (B={b}); "
+          f"{served['generated_tokens'] / served['wall_s']:.1f} generated "
+          f"tokens/s over the run ({served['generated_tokens']} tokens, "
+          f"{served['wall_s']:.2f} s wall, host clock); peak memory "
+          f"{served['peak_bytes'] / 2**30:.2f} GiB; card {card}")
+
+    # first tokens against a teacher-forced forward over the prompts, and
+    # that forward (the MoE's routing, gathers and combine) twice
+    n_first = 0
+    for prompts, gen in served["batches"]:
+        with torch.inference_mode():
+            tf = forward(cfg, params, prompts)[:, -1].float()
+            again = forward(cfg, params, prompts)[:, -1].float()
+        if not torch.isfinite(tf).all():
+            fail("moe: teacher-forced logits are not finite")
+        if not torch.equal(tf, again):
+            fail("moe: two forwards over the same prompts differ (not "
+                 "bit-equal)")
+        first_ok = tf.argmax(-1) == gen[:, 0]
+        gap = tf.max(-1).values - tf.gather(-1, gen[:, :1]).squeeze(-1)
+        if (~first_ok & (gap > NEAR_TIE)).any():
+            fail(f"moe: first tokens {gen[:, 0].tolist()} != teacher-forced "
+                 f"argmax {tf.argmax(-1).tolist()}")
+        n_first += int(first_ok.sum())
+    print(f"[moe] first token equals the teacher-forced argmax for "
+          f"{n_first}/{served['requests']} prompts; the forward over the "
+          f"prompts is bit-equal across two runs")
+
+    # a warm prefill, then one prefill and 8 decode steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import make_prefill_step, make_serve_step
+
+    prefill = make_prefill_step(cfg, s + 32)
+    step = make_serve_step(cfg)
+    prompts = served["batches"][-1][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, prompts)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lg, st = prefill(params, prompts)
+        tok = lg.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(8):
+            lg, st = step(params, tok, st)
+            tok = lg[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    busy = device_busy_us(torch, prof)
+    print(f"[moe] warm prefill {warm_ms:.1f} ms (host clock, synchronized)")
+    if busy is None:
+        print("[profile] the profiler recorded no device time: moe device "
+              "busy and idle share not measured")
+    else:
+        print(f"[profile] moe, one prefill (B={b} x {s}) + 8 decode steps under "
+              f"the profiler: wall {(t2 - t0) * 1e3:.1f} ms (prefill "
+              f"{(t1 - t0) * 1e3:.1f}, decode {(t2 - t1) * 1e3:.1f}), device "
+              f"busy {busy / 1e3:.1f} ms, idle share "
+              f"{1 - busy / 1e6 / (t2 - t0):.4f}; device ms by kernel family: "
+              + ", ".join(f"{g} {t:.1f}" for g, t in
+                          device_breakdown(torch, prof).items())
+              + f"; card {card}")
+        for name, ms, calls in top_kernels(torch, prof):
+            print(f"[profile]   {ms:9.2f} ms {calls:6d} calls  {name[:90]}")
+    del prefill, step, st, lg
+
+    # the flash kernel at this prefill's shape
+    err, _ = check_tapped(torch, fa, ss, tap, "moe serve")
+    k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **att_kw), runs=50)
+    p_ms = time_ms(torch, lambda: fa.mha_ref(q, k, v, **att_kw), runs=10, warmup=2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                   runs=50)
+    lib_err = (sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+               - att_out.float()).abs().max().item()
+    b_ms, b_by, flops = attention_bound(q, k, True, att_kw["window"])
+    print(f"[time] flash_attention {tuple(q.shape)} kv {tuple(k.shape)} "
+          f"{q.dtype} causal, no window (granite-moe prefill): kernel "
+          f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} "
+          f"ms, scaled_dot_product_attention {l_ms:.4f} ms (max abs diff to "
+          f"the kernel {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}); max abs "
+          f"err vs plain {err:.3e}; medians; card {card}")
+    del params, served, q, k, v, att_out, again, tap
+    torch.cuda.empty_cache()
+    return fa_launches, err
+
+
+def train_steps(torch, tt, arch, batch, seq_len, steps, card,
+                profile_last=False):
+    """``steps`` steps of ``make_train_step(impl="xla")`` at the published
+    width of ``arch``: losses finite, no kernel launched; with
+    ``profile_last`` the last step runs under the profiler (device busy,
+    idle share, top kernels).  Returns the config, the state, the last
+    batch, (loss, grad norm, lr, s) per step and the peak GiB."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+    from repro_torch.train.train_step import batch_to_device
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tt.init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                                device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ds = tt.SyntheticDataset(cfg, tt.DataConfig(batch=batch, seq_len=seq_len,
+                                                seed=0))
+    step = tt.make_train_step(cfg)
+    fa.LAUNCHES = ss.LAUNCHES = 0
+    rows, prof = [], None
+    for i in range(steps):
+        b = batch_to_device(ds.next_batch(), "cuda")
+        torch.cuda.synchronize()
+        if profile_last and i == steps - 1:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss, gnorm, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
+        rows.append((loss, gnorm, lr, time.perf_counter() - t0))
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(r[:2]).all() for r in rows):
+        fail(f"train {arch}: non-finite loss or grad norm: {rows}")
+    if fa.LAUNCHES or ss.LAUNCHES:
+        fail(f"train {arch}: the training step launched a kernel "
+             f"(flash {fa.LAUNCHES}, scan {ss.LAUNCHES})")
+    n = sum(p.numel() for p in state.params.parameters())
+    print(f"[train] {cfg.name} at full width ({n:,} parameters, {cfg.dtype}, "
+          f"{cfg.optimizer}, remat {cfg.remat}), B={batch} x {seq_len}, "
+          f"make_train_step(impl='xla'): init {t_init:.1f} s; "
+          + "; ".join(f"step {i + 1} loss {r[0]:.4f} grad_norm {r[1]:.4f} lr "
+                      f"{r[2]:.2e} {r[3]:.2f} s" for i, r in enumerate(rows))
+          + f"; peak memory {peak:.2f} GiB; no kernel launched; card {card}")
+    if prof is not None:
+        busy = device_busy_us(torch, prof)
+        n_dev = sum(a.count for a in prof.key_averages()
+                    if getattr(a, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if busy is None:
+            print("[profile] the profiler recorded no device time: train "
+                  "device busy and idle share not measured")
+        else:
+            print(f"[profile] train {cfg.name}, step {steps} under the "
+                  f"profiler: wall {rows[-1][3]:.2f} s, {n_dev} device kernels "
+                  f"and copies ({busy / max(n_dev, 1):.1f} us each on average), "
+                  f"device busy {busy / 1e6:.3f} s, idle share "
+                  f"{1 - busy / 1e6 / rows[-1][3]:.4f}; card {card}")
+            for name, ms, calls in top_kernels(torch, prof, 6):
+                print(f"[profile]   {ms:9.2f} ms {calls:7d} calls  {name[:90]}")
+    return cfg, state, b, rows, peak
+
+
+def run_train(torch, ops, fa, ss, card):
+    """Training at full width on the card: Hymba-1.5B for 4 steps and one
+    granite-moe step (the MoE backward), through the plain functions; the
+    eval step through the kernels, each kernel held element-wise against
+    its plain version on the step's captured layer-0 inputs and the loss
+    against the plain functions'; a loss through the kernels under grad
+    raises.  Returns the flash and scan kernels' launches in the eval step
+    and their errors there: (launches, attention err, scan (y, hT) err)."""
+    import repro_torch.train as tt
+
+    cfg, state, batch, rows, _ = train_steps(torch, tt, *TRAIN_HYMBA, card)
+    # the eval step, through the kernels and through the plain functions
+    fa.LAUNCHES = ss.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with KernelTap(torch, ops) as tap:
+        got = float(tt.make_eval_step(cfg, impl="kernel")(state.params, batch))
+    t_kernel = time.perf_counter() - t0
+    eval_launches = (fa.LAUNCHES, ss.LAUNCHES)
+    att_err, scan_err = check_tapped(torch, fa, ss, tap, "Hymba eval step")
+    del tap
+    t0 = time.perf_counter()
+    want = float(tt.make_eval_step(cfg)(state.params, batch))
+    t_plain = time.perf_counter() - t0
+    print(f"[train] eval step on one batch: through the kernels {got:.6f} "
+          f"({t_kernel:.2f} s; flash_attention {eval_launches[0]}, ssm_scan "
+          f"{eval_launches[1]} launches), plain functions {want:.6f} "
+          f"({t_plain:.2f} s); |diff| {abs(got - want):.3e} (atol {EVAL_ATOL})")
+    if not np.isfinite([got, want]).all() or abs(got - want) > EVAL_ATOL:
+        fail(f"train: eval loss through the kernels {got} vs plain {want}")
+    if eval_launches != (cfg.n_layers, cfg.n_layers):
+        fail(f"train: eval step launched {eval_launches}, expected "
+             f"{cfg.n_layers} each")
+    try:
+        tt.make_loss_fn(cfg, impl="kernel")(state.params, batch)
+    except RuntimeError as e:
+        if 'impl="xla"' not in str(e):
+            fail(f'train: the kernel path under grad raised without naming '
+                 f'impl="xla": {e}')
+        print(f"[train] a loss through the kernels under grad raises: {e}")
+    else:
+        fail("train: a loss through the kernels under grad did not raise")
+    del state, batch
+    # its one step under the profiler (Hymba's ~2M profiler events take
+    # minutes to summarise, so its steps run unprofiled)
+    train_steps(torch, tt, *TRAIN_MOE, card, profile_last=True)
+    torch.cuda.empty_cache()
+    return eval_launches, att_err, scan_err
+
+
+def run_train_launcher(card):
+    """``python -m repro_torch.launch.train`` on the card at smoke size: 8
+    steps straight against 4, then a restart from the checkpoint for 4
+    more (losses at ``RESTART_RTOL``), and ``--elastic`` (steps, emergency
+    saves, final loss).  Returns the HLEM kernel's launches (the elastic
+    run's availability timeline)."""
+    work = ROOT / "build" / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    def run(argv, name):
+        out, _, wall, hlem = launch(argv, work, name, code=TRAIN_LAUNCHER,
+                                    module="repro_torch.launch.train")
+        lines = out.strip().splitlines()
+        return lines[:-1], json.loads(lines[-1])["losses"], wall, hlem
+
+    # the straight run, the first half and the elastic run at once; the
+    # restart when the first half has ended
+    with ThreadPoolExecutor(3) as pool:
+        straight_f = pool.submit(run, TRAIN_ARGV + [
+            "--steps", "8", "--ckpt-dir", str(work / "ck_a")], "straight")
+        elastic_f = pool.submit(run, ELASTIC_ARGV + [
+            "--ckpt-dir", str(work / "ck_e")], "elastic")
+        _, first, wall_b, _ = run(TRAIN_ARGV + ["--steps", "4", "--ckpt-dir",
+                                                str(work / "ck_b")], "first")
+        out, second, wall_c, _ = run(TRAIN_ARGV + ["--steps", "4", "--ckpt-dir",
+                                                   str(work / "ck_b")], "restart")
+        _, straight, wall_a, _ = straight_f.result()
+        elastic = elastic_f.result()
+    resumed = first + second
+    rel = np.abs(np.array(resumed) - straight) / np.abs(straight)
+    free = shutil.disk_usage(work).free / 2**30
+    print(f"[train] launcher --smoke restart: 8 steps straight ({wall_a:.1f} s) "
+          f"vs 4 ({wall_b:.1f} s) + '{out[0]}' and 4 more ({wall_c:.1f} s), "
+          f"host clock with process start, three processes at a time; "
+          f"step-8 losses {straight[-1]:.6f} vs {resumed[-1]:.6f}, max rel "
+          f"diff over the 8 steps {rel.max():.3e} (rtol {RESTART_RTOL}); "
+          f"free disk at the checkpoint directory {free:.1f} GiB")
+    if out[0] != "restored from step 4" or len(resumed) != 8:
+        fail(f"train launcher: the restart did not resume at step 4: {out[:2]}")
+    if not np.allclose(resumed, straight, rtol=RESTART_RTOL, atol=0):
+        fail(f"train launcher: restart losses {resumed} != straight {straight}")
+    out, losses, wall, hlem = elastic
+    print(f"[elastic] {' '.join(ELASTIC_ARGV)}: {out[0]}; {out[1]}; {wall:.1f} s "
+          f"(host clock, process start included); HLEM kernel launches "
+          f"{hlem} (the availability timeline)")
+    saves = int(out[0].split("emergency_saves=")[1].split()[0])
+    if len(losses) != 20 or not np.isfinite(losses).all() or saves < 1 \
+            or hlem <= 0:
+        fail(f"elastic launcher: {out}, {len(losses)} losses, HLEM {hlem}")
+    print(f"[train] launcher phase {time.perf_counter() - t_phase:.1f} s")
+    return hlem
+
+
+def run_elastic(torch, hk, tc, card):
+    """The elastic layer's scheduling through the HLEM kernel against the
+    numpy backend: ``simulate_worker_availability`` over 256 spot workers
+    (event lists equal) and a ``ClusterScheduler`` placement sequence
+    (placements and states equal).  Returns the kernel's launches."""
+    from repro_torch.elastic import (ClusterScheduler, JobSpec,
+                                     simulate_worker_availability)
+
+    kw = dict(horizon=AVAIL_HORIZON, seed=0, contention=AVAIL_CONTENTION)
+    # the main path: counts set to 0 just before, read just after
+    hk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = simulate_worker_availability(AVAIL_WORKERS, **kw)
+    wall = time.perf_counter() - t0
+    avail = hk.LAUNCHES
+    t0 = time.perf_counter()
+    want = simulate_worker_availability(
+        AVAIL_WORKERS, **kw, policy=tc.HlemVmpAdjusted(backend="numpy"))
+    wall_np = time.perf_counter() - t0
+    kinds = {k: sum(e.kind == k for e in got) for k in ("start", "interrupt")}
+    print(f"[elastic] simulate_worker_availability({AVAIL_WORKERS}, horizon="
+          f"{AVAIL_HORIZON:.0f}, contention={AVAIL_CONTENTION:.0f}): "
+          f"{len(got)} events {kinds}, fewest live workers "
+          f"{min(e.available for e in got)}; kernel {wall:.2f} s, {avail} HLEM "
+          f"launches; numpy {wall_np:.2f} s; event lists equal: {got == want}")
+    if got != want or avail <= 0 or kinds["interrupt"] <= 0:
+        fail("elastic: the kernel's availability timeline differs from "
+             "numpy's, or nothing was scored or interrupted")
+
+    rng = np.random.default_rng(5)
+    jobs = []
+    for i in range(64):
+        chips = int(rng.choice([32, 64, 128, 256]))
+        jobs.append((JobSpec(f"job-{i}", chips=chips, hbm_gb=chips * 16.0,
+                             ici_gbps=chips * 80.0, host_ram_gb=chips * 40.0,
+                             duration_h=float(rng.uniform(0.5, 4.0)),
+                             preemptible=bool(rng.random() < 0.7)),
+                     float(rng.uniform(0, 6 * 3600))))
+    result = {}
+    for backend in ("torch", "numpy"):
+        cs = ClusterScheduler(n_slices=16)
+        if backend == "numpy":
+            cs.sim.policy = tc.HlemVmpAdjusted(alpha=-0.5, backend="numpy")
+        hk.LAUNCHES = 0
+        for job, at in jobs:
+            cs.submit(job, at=at)
+        metrics = cs.run(until_h=8.0)
+        result[backend] = (cs.placement(), cs.states(), hk.LAUNCHES,
+                           metrics.allocations,
+                           sum(vm.interruptions for vm in cs._jobs.values()))
+    placed, states, placement_launches, allocs, interrupted = result["torch"]
+    print(f"[elastic] ClusterScheduler: 64 jobs on 16 v5e-256 slices over 8 h: "
+          f"{allocs} allocations, {interrupted} spot-job interruptions, "
+          f"{placement_launches} HLEM launches; placements and states equal "
+          f"the numpy backend's: {result['torch'][:2] == result['numpy'][:2]}; "
+          f"card {card}")
+    if result["torch"][:2] != result["numpy"][:2] or placement_launches <= 0:
+        fail("elastic: ClusterScheduler placements differ from numpy's or "
+             "the kernel was not launched")
+    return avail + placement_launches
+
+
 def main() -> int:
     import torch
 
@@ -981,6 +1490,14 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.split()[0])
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"devices {torch.cuda.device_count()}")
+    t_start = t_last = time.perf_counter()
+
+    def phase(name):
+        """Prints the wall of the phase that just ended (host clock)."""
+        nonlocal t_last
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - t_last:.1f} s (script {now - t_start:.1f} s)")
+        t_last = now
 
     # -- build: one nvcc per source, all started together ------------------------
     t0 = time.perf_counter()
@@ -1046,6 +1563,8 @@ def main() -> int:
           f"argmax, bit-equal reruns): single max_abs_err {err_single:.3e}, "
           f"batch max_abs_err {err_batch:.3e}")
 
+    phase("build and kernel checks")
+
     # -- timing at the cluster's width ---------------------------------------------
     floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0))
     print(f"[time] launch floor: an empty kernel (torch.cuda._sleep(0)) "
@@ -1101,6 +1620,8 @@ def main() -> int:
           f"{nbytes} B pinned->device copy {copy_ms * 1e3:.1f} us on the "
           f"device ({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); median of 100")
 
+    phase("HLEM timing and staging")
+
     # -- quick trace through the kernel ------------------------------------------
     qcfg = TraceConfig(seed=0, n_machines=60, sim_days=0.08, n_spot=300,
                        load_per_machine=30.0, spot_durations_h=(1.0, 2.0))
@@ -1126,8 +1647,11 @@ def main() -> int:
     if qlaunch <= 0:
         fail("quick trace: the kernel was never launched")
 
+    phase("quick trace")
+
     # -- cluster-scale trace: the main path ----------------------------------------
-    ccfg = TraceConfig(seed=0, n_machines=N_CLUSTER, sim_days=0.005, n_spot=2000)
+    ccfg = TraceConfig(seed=0, n_machines=N_CLUSTER, sim_days=CLUSTER_DAYS,
+                       n_spot=2000)
     horizon = ccfg.sim_days * 86_400.0
     t0 = time.perf_counter()
     ctr = generate_trace(ccfg)
@@ -1261,6 +1785,8 @@ def main() -> int:
               f"allocations, device busy {busy / 1e3:.1f} ms, idle share "
               f"{1 - busy / 1e6 / wall_w:.4f}; {by_name}")
 
+    phase("cluster trace")
+
     # -- the dynamic spot market (--market grid) and price fans: the third path --
     fan_engine, err_m, err_mb, market_launches = run_market(
         torch, ta, tc, hk, ops, core_alloc,
@@ -1268,9 +1794,13 @@ def main() -> int:
     err_single, err_batch = max(err_single, err_m), max(err_batch, err_mb)
     run_fan(torch, tm, fan_engine, card)
 
+    phase("market and fans")
+
     # -- the port's entry point, python -m repro_torch.launch.market_sim ---------
     # the main path: each launcher process counts from 0 and reports its count
     launch_launches = run_launch(ta, kind, card)
+
+    phase("launcher")
 
     # -- attention and scan kernels against their plain versions ------------------
     t0 = time.perf_counter()
@@ -1282,33 +1812,13 @@ def main() -> int:
           f"full (tol y/hT {SCAN_TOL}, bit-equal reruns): max abs err (y, hT) "
           f"{scan_err}; {time.perf_counter() - t0:.1f} s")
 
+    phase("attention and scan checks")
+
     # -- Hymba-1.5B serving at full width: the second main path -------------------
-    captured = {}
-    orig_attention, orig_scan = ops.attention, ops.selective_scan
-
-    def keep(*ts):
-        return tuple(None if t is None else t.clone(
-            memory_format=torch.contiguous_format) for t in ts)
-
-    def attention_tap(q, k, v, **kw):   # keeps the first call's inputs
-        out = orig_attention(q, k, v, **kw)
-        if "attention" not in captured:
-            captured["attention"] = (keep(q, k, v, out), kw)
-        return out
-
-    def scan_tap(*args):
-        out = orig_scan(*args)
-        if "scan" not in captured:
-            captured["scan"] = keep(*args, *out)
-        return out
-
-    ops.attention, ops.selective_scan = attention_tap, scan_tap
     # the main path: counts set to 0 just before, read just after
     hk.LAUNCHES = fa.LAUNCHES = ss.LAUNCHES = 0
-    try:
+    with KernelTap(torch, ops) as tap:
         served = serve_launch.run(SERVE_ARGV)
-    finally:
-        ops.attention, ops.selective_scan = orig_attention, orig_scan
     fa_launches, ss_launches = fa.LAUNCHES, ss.LAUNCHES
     cfg, params = served["cfg"], served["params"]
     n_prefill, steps = len(served["prefill_s"]), served["decode_steps"]
@@ -1339,28 +1849,14 @@ def main() -> int:
           f"each prefill and batch end); peak memory "
           f"{served['peak_bytes'] / 2**30:.2f} GiB; card {card}")
 
-    # captured first-layer prefill inputs: kernel against plain version
-    (q, k, v, att_out), att_kw = captured["attention"]
-    again = fa.flash_attention(q, k, v, **att_kw)
-    if not torch.equal(again, att_out):
-        fail("flash_attention on the captured inputs differs from the run")
-    err = (again.float() - fa.mha_ref(q, k, v, **att_kw).float()).abs().max().item()
-    if err > ATT_TOL["bfloat16"]:
-        fail(f"flash_attention on the captured layer-0 inputs: err {err:.3e}")
+    # captured first-layer prefill inputs: kernels against plain versions
+    err, (ey, eh) = check_tapped(torch, fa, ss, tap, "Hymba serve")
     att_err["bfloat16"] = max(att_err["bfloat16"], err)
-    x, dtv, a, bb, c, d, h0, y_run, h_run = captured["scan"]
-    scan_args = (x, dtv, a, bb, c, d, h0)
-    got = ss.ssm_scan(*scan_args)
-    if not (torch.equal(got[0], y_run) and torch.equal(got[1], h_run)):
-        fail("ssm_scan on the captured inputs differs from the run")
-    ey, eh = compare_scan(torch, got, ss.ssm_scan_ref(*scan_args), "bfloat16",
-                          "ssm_scan on the captured layer-0 inputs")
     scan_err["bfloat16"] = (max(scan_err["bfloat16"][0], ey),
                             max(scan_err["bfloat16"][1], eh))
-    print(f"[check] on the captured layer-0 prefill inputs (q {tuple(q.shape)} "
-          f"{q.dtype}, x {tuple(x.shape)} {x.dtype}): flash_attention max abs "
-          f"err {err:.3e}, ssm_scan y {ey:.3e} hT {eh:.3e}; both bit-equal to "
-          f"the serve run's outputs")
+    (q, k, v, att_out), att_kw = tap.attention
+    scan_args = tap.scan[:7]
+    x, a, h0 = scan_args[0], scan_args[2], scan_args[6]
 
     # greedy tokens against a teacher-forced forward through the kernels,
     # for every batch (the interrupted one up to its interruption)
@@ -1429,7 +1925,7 @@ def main() -> int:
           f"{floor_ms:.4f} ms; kernel <bf16, S=4> {scan_regs[0]} registers, "
           f"spill stores {scan_regs[1]} B, spill loads {scan_regs[2]} B; "
           f"medians; card {card}")
-    del q, k, v, att_out, again, captured
+    del q, k, v, att_out, scan_args, x, a, h0, tap
 
     # where the device time goes in one prefill and 8 decode steps
     from torch.profiler import ProfilerActivity, profile
@@ -1466,12 +1962,46 @@ def main() -> int:
     del params, served, prefill, step, st, lg
     torch.cuda.empty_cache()
 
+    phase("Hymba serving")
+
+    # -- granite-moe-3b-a800m serving at full width: the MoE block ---------------
+    moe_fa_launches, moe_err = run_moe(torch, ops, fa, ss, hk, serve_launch,
+                                       forward, card)
+    att_err["bfloat16"] = max(att_err["bfloat16"], moe_err)
+
+    phase("granite-moe serving")
+
+    # -- training at full width; the eval step through the kernels ----------------
+    (eval_fa, eval_ss), eval_att, eval_scan = run_train(torch, ops, fa, ss, card)
+    att_err["bfloat16"] = max(att_err["bfloat16"], eval_att)
+    scan_err["bfloat16"] = (max(scan_err["bfloat16"][0], eval_scan[0]),
+                            max(scan_err["bfloat16"][1], eval_scan[1]))
+
+    phase("training")
+
+    # -- the training launcher: restart from a checkpoint, and --elastic -------------
+    train_launches = run_train_launcher(card)
+
+    phase("training launcher")
+
+    # -- the elastic layer's scheduling through the HLEM kernel ---------------------
+    elastic_launches = run_elastic(torch, hk, tc, card)
+
     # the single-VM kernel's launches over its main paths: the cluster trace,
     # the --market runs and the launcher's runs
-    hlem_launches = sim_launches + market_launches + launch_launches
+    phase("elastic scheduling")
+    hlem_launches = (sim_launches + market_launches + launch_launches
+                     + train_launches + elastic_launches)
     print(f"[check] hlem_score launches on the main paths: cluster trace "
           f"{sim_launches}, --market runs {market_launches}, launcher "
-          f"{launch_launches}; total {hlem_launches}")
+          f"{launch_launches}, training launcher --elastic {train_launches}, "
+          f"elastic scheduling {elastic_launches}; total {hlem_launches}")
+    print(f"[check] flash_attention launches on the main paths: Hymba serve "
+          f"{fa_launches}, granite-moe serve {moe_fa_launches}, Hymba eval "
+          f"step {eval_fa}; ssm_scan: Hymba serve {ss_launches}, eval step "
+          f"{eval_ss}")
+    fa_launches += moe_fa_launches + eval_fa
+    ss_launches += eval_ss
     kernels = []
     for name, b, line, launches, err in (
             ("hlem_score", 1, 137, hlem_launches, err_single),

@@ -2,10 +2,8 @@
 
 Each module defines ``CONFIG`` (the exact published configuration) and
 ``SMOKE_CONFIG`` (a reduced same-family configuration for CPU smoke tests).
-Data only: a copy of the reference package's ``configs/``.  The port builds
-models of the dense, ssm and hybrid families; building an MoE model
-(``granite_moe_3b_a800m``, ``kimi_k2_1t_a32b``) raises
-``NotImplementedError`` in ``repro_torch.models.model``.
+Data only: a copy of the reference package's ``configs/``; the port builds
+every one of them.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ of the checkout.  The hash is of the source and of every shared header
 header is never served from a stale library.  A C interface keeps
 PyTorch's headers out of the compile, which then takes seconds instead of
 minutes.  Nothing here runs at import time: the CPU-only test environment
-has no ``nvcc``.
+has no ``nvcc``.  ``refuse_grad`` is the wrappers' shared check that no
+input of a kernel needs a gradient.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import os
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -62,6 +65,18 @@ def build(name: str) -> Path:
     out.with_suffix(".so.log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent builder never sees a partial file
     return out
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when grad is enabled and any of ``tensors`` (None skipped)
+    requires it: a kernel writes fresh tensors with no ``grad_fn``, so a loss
+    through it would silently lose the gradient of everything upstream."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward: run the model with "
+            f'impl="xla" (the plain, differentiable functions) to train, '
+            f"or call it under torch.no_grad()")
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -11,7 +11,12 @@ The plain version ``mha_ref`` has the semantics of the reference package's
 h reads kv head h // (H // Hkv), positions end-aligned (query i sits at
 i + Tk - Tq), f32 arithmetic, output in q's dtype.
 
-``flash_attention`` takes CUDA tensors only and raises on anything else;
+``mha_chunked_ref`` is the reference's ``mha_chunked_ref``: the same
+function as an online softmax over key chunks, whose live memory is
+O(Tq * chunk); the model's ``impl="xla"`` path (training) takes it.
+
+``flash_attention`` takes CUDA tensors only and raises on anything else,
+and on inputs that need a gradient (the kernel has no backward);
 choosing between the kernel and the plain version by device is ``ops``'
 job.  ``LAUNCHES`` counts the kernel's launches.
 """
@@ -58,6 +63,52 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = logits.masked_fill(~ok, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs, vf).to(q.dtype)
+
+
+def mha_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    chunk: int = 1024) -> torch.Tensor:
+    """``mha_ref`` as an online softmax over key chunks of ``chunk`` in f32
+    (the last chunk padded); for ``Tk <= chunk``, ``mha_ref`` itself.
+    Differentiable: training keeps its memory at O(Tq * chunk) a layer."""
+    b, h, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = dh ** -0.5
+    if tk <= chunk:
+        return mha_ref(q, k, v, causal=causal, window=window, scale=scale)
+    group = h // hkv
+    n_chunks = -(-tk // chunk)
+    pad = n_chunks * chunk - tk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    qf = q.to(torch.float32)
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    m = torch.full((b, h, tq), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, tq, dh), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        kc = kp[:, :, sl].to(torch.float32).repeat_interleave(group, dim=1)
+        vc = vp[:, :, sl].to(torch.float32).repeat_interleave(group, dim=1)
+        s = torch.matmul(qf, kc.transpose(-1, -2)) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
+        ok = kpos < tk
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window is not None:
+            ok = ok & (kpos > qpos - window)
+        s = s.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(ok, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vc)
+        m = m_new
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.to(q.dtype)
 
 
 def _launch_fn(dtype: torch.dtype):
@@ -110,6 +161,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must be on one device")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    _build.refuse_grad("flash_attention", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     with torch.cuda.device(device):

@@ -11,8 +11,9 @@ Pallas TPU kernel ``repro.kernels.ssm_scan.ssm_scan``.  The plain version
 x, dt (B,T,Dm), a (Dm,N) f32, b, c (B,T,N), d (Dm,) f32, optional h0
 (B,Dm,N) f32 -> y (B,T,Dm) in x's dtype and hT (B,Dm,N) f32.
 
-``ssm_scan`` takes CUDA tensors only and raises on anything else; choosing
-between the kernel and the plain version by device is ``ops``' job.
+``ssm_scan`` takes CUDA tensors only and raises on anything else, and on
+inputs that need a gradient (the kernel has no backward); choosing between
+the kernel and the plain version by device is ``ops``' job.
 ``LAUNCHES`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -25,6 +26,8 @@ import torch
 from . import _build
 
 MAX_STATE = 64
+#: time steps a chunk of the plain version computes its decay and drive for
+SCAN_CHUNK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: number of kernel launches since the last reset (set it to 0 to reset)
@@ -37,7 +40,11 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
                  h0: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan as a loop over time in f32; live memory is O(B*Dm*N)."""
+    """The scan as a loop over time in f32, in chunks of ``SCAN_CHUNK``
+    steps: each chunk's decay ``exp(dt*a)`` and drive ``dt*b*x``, then its
+    state recurrence (two ops a step) and its outputs ``h . c`` at once.
+    Live memory is O(B * SCAN_CHUNK * Dm * N).  Differentiable: the model's
+    ``impl="xla"`` path (training) takes it."""
     bsz, t, dm = x.shape
     n = a.shape[1]
     f32 = torch.float32
@@ -45,12 +52,19 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     af = a.to(f32)
     h = (torch.zeros((bsz, dm, n), dtype=f32, device=x.device) if h0 is None
          else h0.to(f32))
-    ys = torch.empty((bsz, t, dm), dtype=f32, device=x.device)
-    for i in range(t):
-        dt_i = dtf[:, i, :, None]                              # (B,Dm,1)
-        h = torch.exp(dt_i * af) * h + (dt_i * bf[:, i, None, :]) * xf[:, i, :, None]
-        ys[:, i] = torch.einsum("bdn,bn->bd", h, cf[:, i])
-    y = ys + xf * d.to(f32)
+    ys = []
+    for t0 in range(0, t, SCAN_CHUNK):
+        sl = slice(t0, t0 + SCAN_CHUNK)
+        dt_c = dtf[:, sl, :, None]                             # (B,C,Dm,1)
+        da = torch.exp(dt_c * af)                              # (B,C,Dm,N)
+        db = (dt_c * bf[:, sl, None, :]) * xf[:, sl, :, None]
+        hs = []
+        for da_i, db_i in zip(da.unbind(1), db.unbind(1)):
+            h = da_i * h + db_i
+            hs.append(h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1),
+                               cf[:, sl]))
+    y = torch.cat(ys, dim=1) + xf * d.to(f32)
     return y.to(x.dtype), h
 
 
@@ -105,6 +119,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if h0 is not None:
         _check("h0", h0, device, f32, (bsz, dm, n))
         h0 = h0.contiguous()
+    _build.refuse_grad("ssm_scan", x, dt, a, b, c, d, h0)
     x, dt, a, b, c, d = (z.contiguous() for z in (x, dt, a, b, c, d))
     y = torch.empty_like(x)
     h_t = torch.empty((bsz, dm, n), dtype=torch.float32, device=device)

@@ -1,5 +1,6 @@
 """Model building blocks: RMSNorm, RoPE, GQA attention (prefill + decode),
-the MLP, the Mamba-1 block and the Hymba parallel attention + SSM block.
+the MLP, the capacity-based MoE block, the Mamba-1 block and the Hymba
+parallel attention + SSM block.
 
 Ports of the reference package's ``models/layers.py``, as ``nn.Module``s
 whose parameter names equal the reference's parameter dict keys (``wq``,
@@ -9,11 +10,13 @@ activations multiply on the left (``x @ wq`` with ``wq`` (d, H*hd)).
 Modules are built empty (``torch.empty``); ``model.init_params`` or
 ``weights.params_from_jax`` fill them.
 
-Prefill attention goes through ``ops.attention`` and every scan through
-``ops.selective_scan``: the plain versions for CPU tensors, the CUDA kernels
-for CUDA tensors.  Decode attention is plain tensor code, as in the
-reference.  Decode updates the KV cache in place.  The MoE block is not
-ported yet.
+With ``impl="kernel"`` (the default) prefill attention goes through
+``ops.attention`` and every scan through ``ops.selective_scan``: the plain
+versions for CPU tensors, the CUDA kernels for CUDA tensors.  With
+``impl="xla"``, the reference's training setting, they are the plain,
+differentiable ``mha_chunked_ref`` and ``ssm_scan_ref`` on any device.
+Decode attention and the MoE block are plain tensor code, as in the
+reference.  Decode updates the KV cache in place.
 """
 from __future__ import annotations
 
@@ -24,7 +27,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..kernels.flash_attention import mha_chunked_ref
+from ..kernels.ssm_scan import ssm_scan_ref
 from .config import ArchConfig
+
+#: ``impl`` values of the model's forward: the kernels (on CUDA tensors) or
+#: the plain functions the reference trains with
+IMPLS = ("kernel", "xla")
 
 #: parameters that stay float32 whatever ``cfg.dtype`` is
 F32_PARAMS = frozenset({"ln1", "ln2", "final_ln", "norm_a", "norm_s",
@@ -76,7 +85,7 @@ class Attention(nn.Module):
         self.wv = empty_param((d, hkv), dt, device)
         self.wo = empty_param((hq, d), dt, device)
 
-    def forward(self, x: torch.Tensor, pos0: int = 0
+    def forward(self, x: torch.Tensor, pos0: int = 0, impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Full-sequence attention: x (B,S,d) -> (out (B,S,d), (k, v)),
         k and v (B,Hkv,S,hd) for the cache."""
@@ -89,7 +98,11 @@ class Attention(nn.Module):
         positions = pos0 + torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        o = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        if impl == "xla":
+            o = mha_chunked_ref(q, k, v, causal=True, window=cfg.sliding_window,
+                                chunk=cfg.attention_chunk)
+        else:
+            o = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
         o = o.transpose(1, 2).reshape(b, s, h * hd)
         return o @ self.wo, (k, v)
 
@@ -162,6 +175,97 @@ class MLP(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# MoE: top-k routing with per-expert capacity, gather/scatter dispatch
+# ---------------------------------------------------------------------------
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest along the last axis, equal values in ascending
+    index order as ``jax.lax.top_k`` gives them (``torch.topk`` promises no
+    order for ties on CUDA)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def _moe_route(eidx: torch.Tensor, n_experts: int, cap: int):
+    """Slot assignment for every group at once; eidx (G, g, K) expert ids.
+
+    Token choices fill an expert's ``cap`` slots in (token, choice) order
+    (stable argsort); a choice past capacity goes to the overflow bucket
+    ``E*cap`` and is dropped.  Returns (slot (G, g*K) in 0..E*cap, keep
+    (G, g, K) bool, table (G, E*cap) slot -> token id, the sentinel g where
+    a slot is empty)."""
+    n_groups, g, k = eidx.shape
+    flat_e = eidx.reshape(n_groups, g * k)
+    counts = torch.zeros((n_groups, n_experts), dtype=torch.long,
+                         device=eidx.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=1) - counts
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    ar = torch.arange(g * k, device=eidx.device).expand(n_groups, -1)
+    rank = torch.empty_like(flat_e).scatter_(1, order, ar)
+    pos = rank - torch.gather(starts, 1, flat_e)
+    keep = pos < cap
+    overflow = n_experts * cap
+    slot = torch.where(keep, flat_e * cap + pos, overflow)
+    tok = torch.where(keep, ar // k, g)
+    table = torch.full((n_groups, overflow + 1), g, dtype=torch.long,
+                       device=eidx.device).scatter_(1, slot, tok)[:, :overflow]
+    return slot, keep.reshape(n_groups, g, k), table
+
+
+class MoE(nn.Module):
+    """Capacity-based top-k MoE: tokens in groups of ``moe_group_size``,
+    routed in f32, gathered into (G, E, cap, d), through the experts' gated
+    FFNs, and combined back.  The combine sums each token's K weighted
+    expert outputs in choice order (a gather through the slot map, no
+    scatter-add), so reruns on the card are bit-equal."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, param_dtype(cfg)
+        self.router = empty_param((d, e), torch.float32, device)
+        self.w_gate = empty_param((e, d, f), dt, device)
+        self.w_up = empty_param((e, d, f), dt, device)
+        self.w_down = empty_param((e, f, d), dt, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, d) -> (B, S, d)."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        e, k = cfg.n_experts, cfg.top_k
+        t = b * s
+        g = min(cfg.moe_group_size, t)
+        n_groups = -(-t // g)
+        xt = x.reshape(t, d)
+        if n_groups * g != t:
+            xt = F.pad(xt, (0, 0, 0, n_groups * g - t))
+        xt = xt.reshape(n_groups, g, d)
+        cap = max(1, int(g * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+        probs = torch.softmax(xt.to(torch.float32) @ self.router, dim=-1)
+        gate, eidx = _top_k(probs, k)                           # (G,g,K)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        slot, keep, table = _moe_route(eidx, e, cap)
+
+        groups = torch.arange(n_groups, device=x.device)[:, None]
+        x_pad = torch.cat([xt, xt.new_zeros((n_groups, 1, d))], dim=1)
+        xe = x_pad[groups, table].reshape(n_groups, e, cap, d)
+        hg = torch.einsum("Gecd,edf->Gecf", xe, self.w_gate)
+        hu = torch.einsum("Gecd,edf->Gecf", xe, self.w_up)
+        ye = torch.einsum("Gecf,efd->Gecd", F.silu(hg) * hu, self.w_down)
+
+        ye_pad = torch.cat([ye.reshape(n_groups, e * cap, d),
+                            ye.new_zeros((n_groups, 1, d))], dim=1)
+        picked = ye_pad[groups, slot].reshape(n_groups, g, k, d)
+        w = torch.where(keep, gate, 0.0).to(ye.dtype)[..., None]
+        out = picked[:, :, 0] * w[:, :, 0]
+        for j in range(1, k):
+            out = out + picked[:, :, j] * w[:, :, j]
+        return out.reshape(n_groups * g, d)[:t].reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
 # Mamba-1 block
 # ---------------------------------------------------------------------------
 def _causal_conv(xz: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -197,7 +301,8 @@ class Mamba(nn.Module):
         self.out_proj = empty_param((di, d), dt, device)
 
     def forward(self, x: torch.Tensor,
-                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                impl: str = "kernel"):
         """x (B,S,d) -> (y (B,S,d), (ssm_state (B,di,N) f32,
         conv_state (B,W-1,di)))."""
         cfg = self.cfg
@@ -220,7 +325,8 @@ class Mamba(nn.Module):
         dt = F.softplus(dt_raw @ self.dt_proj + self.dt_bias).to(xc.dtype)
         a = -torch.exp(self.a_log)                                # (di, N)
 
-        y, h_t = ops.selective_scan(xc, dt, a, b_in, c_in, self.d_skip, h0)
+        scan = ssm_scan_ref if impl == "xla" else ops.selective_scan
+        y, h_t = scan(xc, dt, a, b_in, c_in, self.d_skip, h0)
         y = y * F.silu(z)
         return y @ self.out_proj, (h_t, new_conv)
 
@@ -244,9 +350,10 @@ class HymbaMixer(nn.Module):
         out = 0.5 * (rmsnorm(ao, self.norm_a) + rmsnorm(so, self.norm_s))
         return out.to(x.dtype)
 
-    def forward(self, x: torch.Tensor, state=None, pos0: int = 0):
-        ao, kv = self.attn(x, pos0=pos0)
-        so, new_state = self.mamba(x, state)
+    def forward(self, x: torch.Tensor, state=None, pos0: int = 0,
+                impl: str = "kernel"):
+        ao, kv = self.attn(x, pos0=pos0, impl=impl)
+        so, new_state = self.mamba(x, state, impl=impl)
         return self._combine(ao, so, x), kv, new_state
 
     def decode(self, x: torch.Tensor, kv_cache, ssm_state, pos: int):

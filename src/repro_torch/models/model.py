@@ -1,13 +1,14 @@
-"""Model assembly: init / forward / prefill caches / decode for the dense,
-ssm and hybrid families.
+"""Model assembly: init / forward / prefill caches / decode for all four
+families (dense, moe, ssm, hybrid).
 
 A port of the reference package's ``models/model.py``.  ``Model`` is an
 ``nn.Module`` holding ``embed`` (text models), ``final_ln``, ``lm_head`` and
 a ``ModuleList`` of ``Block``s; its ``state_dict`` keys mirror the
 reference's parameter tree (``layers.3.mixer.attn.wq`` is
 ``params["layers"]["mixer"]["attn"]["wq"][3]`` there).  Sharding
-constraints and rematerialisation are dropped: neither changes the numbers,
-and inference needs neither.
+constraints are dropped: they do not change the numbers.  With
+``cfg.remat`` and grad enabled, each block runs under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint``.
 
 Modality handling: ``text`` models embed integer tokens; ``vlm``/``audio``
 backbones take precomputed (B, S, d_model) embeddings.
@@ -18,13 +19,11 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
-from .layers import (MLP, Attention, HymbaMixer, Mamba, empty_param,
-                     param_dtype, rmsnorm)
-
-MOE_TODO = ("the MoE block (reference models/layers.py:204-304, moe_fwd) is "
-            "not ported yet: ROADMAP Queue 1 item 6")
+from .layers import (IMPLS, MLP, Attention, HymbaMixer, Mamba, MoE,
+                     empty_param, param_dtype, rmsnorm)
 
 
 class Block(nn.Module):
@@ -35,10 +34,13 @@ class Block(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         self.ln1 = empty_param((d,), torch.float32, device)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             self.attn = Attention(cfg, device)
             self.ln2 = empty_param((d,), torch.float32, device)
-            self.mlp = MLP(cfg, device)
+            if cfg.is_moe:
+                self.moe = MoE(cfg, device)
+            else:
+                self.mlp = MLP(cfg, device)
         elif cfg.family == "ssm":
             self.mamba = Mamba(cfg, device)
         elif cfg.family == "hybrid":
@@ -48,20 +50,24 @@ class Block(nn.Module):
         else:
             raise ValueError(cfg.family)
 
-    def forward(self, x: torch.Tensor, pos0: int = 0):
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, self.ln2)
+        return self.moe(h) if self.cfg.is_moe else self.mlp(h)
+
+    def forward(self, x: torch.Tensor, pos0: int = 0, impl: str = "kernel"):
         """Returns (x, (kv, ssm_state)); either part is None when the
         family has no such cache."""
         cfg = self.cfg
         h = rmsnorm(x, self.ln1)
-        if cfg.family == "dense":
-            ao, kv = self.attn(h, pos0=pos0)
+        if cfg.family in ("dense", "moe"):
+            ao, kv = self.attn(h, pos0=pos0, impl=impl)
             x = x + ao
-            x = x + self.mlp(rmsnorm(x, self.ln2))
+            x = x + self._ffn(x)
             return x, (kv, None)
         if cfg.family == "ssm":
-            mo, state = self.mamba(h)
+            mo, state = self.mamba(h, impl=impl)
             return x + mo, (None, state)
-        mo, kv, state = self.mixer(h, pos0=pos0)
+        mo, kv, state = self.mixer(h, pos0=pos0, impl=impl)
         x = x + mo
         x = x + self.mlp(rmsnorm(x, self.ln2))
         return x, (kv, state)
@@ -69,10 +75,10 @@ class Block(nn.Module):
     def decode(self, x: torch.Tensor, kv, ssm, pos: int):
         cfg = self.cfg
         h = rmsnorm(x, self.ln1)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             ao, kv = self.attn.decode(h, kv, pos)
             x = x + ao
-            x = x + self.mlp(rmsnorm(x, self.ln2))
+            x = x + self._ffn(x)
         elif cfg.family == "ssm":
             mo, ssm = self.mamba.decode(h, ssm)
             x = x + mo
@@ -89,8 +95,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.is_moe or cfg.family == "moe":
-            raise NotImplementedError(f"{cfg.name}: {MOE_TODO}")
         self.cfg = cfg
         d, v, dt = cfg.d_model, cfg.vocab, param_dtype(cfg)
         if cfg.modality == "text":
@@ -127,6 +131,14 @@ def _init_mlp(m: MLP, cfg: ArchConfig, gen) -> None:
     else:
         _trunc(m.w_in, d ** -0.5, gen)
         _trunc(m.w_out, f ** -0.5, gen)
+
+
+def _init_moe(m: MoE, cfg: ArchConfig, gen) -> None:
+    d, f = cfg.d_model, cfg.d_ff
+    _trunc(m.router, d ** -0.5, gen)
+    _trunc(m.w_gate, d ** -0.5, gen)
+    _trunc(m.w_up, d ** -0.5, gen)
+    _trunc(m.w_down, f ** -0.5, gen)
 
 
 def _init_mamba(m: Mamba, cfg: ArchConfig, gen) -> None:
@@ -166,10 +178,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     del z
     for blk in model.layers:
         blk.ln1.fill_(1.0)
-        if cfg.family in ("dense", "hybrid"):
+        if cfg.family != "ssm":
             blk.ln2.fill_(1.0)
+        if cfg.is_moe:
+            _init_moe(blk.moe, cfg, generator)
+        elif cfg.family != "ssm":
             _init_mlp(blk.mlp, cfg, generator)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             _init_attention(blk.attn, cfg, generator)
         elif cfg.family == "ssm":
             _init_mamba(blk.mamba, cfg, generator)
@@ -193,19 +208,30 @@ def embed_tokens(cfg: ArchConfig, params: Model, tokens: torch.Tensor):
 
 
 def forward(cfg: ArchConfig, params: Model, tokens: torch.Tensor,
-            pos0: int = 0, return_caches: bool = False):
+            pos0: int = 0, return_caches: bool = False, impl: str = "kernel"):
     """tokens: int (B,S) for text, float (B,S,d) otherwise -> logits
     (B,S,V).
+
+    ``impl="kernel"`` runs prefill attention and the scans through ``ops``
+    (the CUDA kernels on CUDA tensors, which refuse inputs that need a
+    gradient); ``impl="xla"`` through the plain, differentiable functions,
+    as the reference trains.
 
     ``return_caches`` also returns the per-layer caches stacked on a leading
     layer axis, as the reference's layer scan returns them:
     ``(kv, ssm)`` with ``kv = (k, v)`` each (L,B,Hkv,S,hd) and
     ``ssm = (h, conv)`` with h (L,B,di,N) f32 and conv (L,B,W-1,di); a part
     is None when the family has no such cache."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     x = embed_tokens(cfg, params, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
     caches = []
     for blk in params.layers:
-        x, cache = blk(x, pos0=pos0)
+        if remat:
+            x, cache = checkpoint(blk, x, pos0, impl, use_reentrant=False)
+        else:
+            x, cache = blk(x, pos0=pos0, impl=impl)
         if return_caches:
             caches.append(cache)
     x = rmsnorm(x, params.final_ln)

@@ -8,10 +8,14 @@ dicts.  Given that tree with numpy leaves (``jax.tree.map(np.asarray, ...)``),
 to one onto ``state_dict`` keys (``layers.<i>.<path>``), and every parameter
 keeps its dtype: the norms, ``dt_bias``, ``a_log``, ``d_skip`` and
 ``router`` in f32, the rest in ``cfg.dtype``.
+
+``param_leaves`` views the port's model in the reference's leaf naming (the
+optimizer's tree), and ``train_state_from_jax`` carries a whole reference
+``TrainState`` over: parameters, optimizer moments and step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -81,3 +85,51 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping, device=None) -> Model:
                              f"{tuple(state[key].shape)}")
         state[key].copy_(src)
     return model
+
+
+def param_leaves(cfg: ArchConfig, model: Model
+                 ) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
+    """The model's parameters under the reference's leaf names: with
+    ``scan_layers`` the layers' tensors of one parameter form one leaf,
+    ``layers.<path>``, a list in layer order (the reference stacks them on
+    a leading L axis); otherwise each is its own leaf, ``layers.<i>.<path>``.
+    The tensors are the model's own, not copies."""
+    out: Dict[str, Any] = {}
+    for key, p in model.named_parameters():
+        if cfg.scan_layers and key.startswith("layers."):
+            out.setdefault("layers." + key.split(".", 2)[2], []).append(p)
+        else:
+            out[key] = p
+    return out
+
+
+@torch.no_grad()
+def train_state_from_jax(cfg: ArchConfig, state: Any, device=None):
+    """The port's ``TrainState`` holding the reference's ``TrainState``
+    ``state`` (numpy leaves): the parameters (grads on, as
+    ``train.init_train_state`` sets them), the AdamW ``m``/``v`` or
+    Adafactor ``row``/``col`` in their stacked leaf shapes and dtypes, and
+    the step counts.  ``rng`` is a fresh generator on ``device``."""
+    from ..train.optimizer import AdafactorState, AdamWState
+    from ..train.train_step import TrainState
+
+    model = params_from_jax(cfg, state.params, device)
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    names = list(param_leaves(cfg, model))
+
+    def tree(t):
+        flat = dict(_leaves(t))
+        if set(flat) != set(names):
+            raise ValueError(f"optimizer tree keys {sorted(flat)} differ from "
+                             f"the parameter leaves {sorted(names)}")
+        return {k: _to_tensor(np.asarray(flat[k])).to(device) for k in names}
+
+    opt = state.opt
+    if cfg.optimizer == "adamw":
+        new_opt = AdamWState(int(opt.step), tree(opt.m), tree(opt.v))
+    else:
+        new_opt = AdafactorState(int(opt.step), tree(opt.row), tree(opt.col))
+    gen = torch.Generator(device=device or "cpu").manual_seed(0)
+    return TrainState(model, new_opt, int(state.step), gen)

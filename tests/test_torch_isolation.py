@@ -40,6 +40,12 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.obs.analyze, repro_torch.obs.report\n"
         "import repro_torch.obs.export, repro_torch.obs.profile\n"
         "import repro_torch.obs.sanitize, repro_torch.launch.market_sim\n"
+        "import repro_torch.train, repro_torch.train.optimizer\n"
+        "import repro_torch.train.train_step, repro_torch.train.data\n"
+        "import repro_torch.elastic, repro_torch.elastic.checkpoint\n"
+        "import repro_torch.elastic.compression, repro_torch.elastic.straggler\n"
+        "import repro_torch.elastic.placement, repro_torch.elastic.elastic\n"
+        "import repro_torch.launch.train\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -62,14 +62,8 @@ def test_configs_equal_reference(arch):
     assert tcfg.get_config(arch).n_params() == rcfg.get_config(arch).n_params()
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "kimi_k2_1t_a32b"])
-def test_moe_model_raises_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="moe_fwd"):
-        tm.Model(_port_cfg(arch))
-
-
 @pytest.mark.parametrize("scan_layers", [True, False])
-@pytest.mark.parametrize("arch", SLICE + ["starcoder2_15b"])
+@pytest.mark.parametrize("arch", SLICE + ["starcoder2_15b", "granite_moe_3b_a800m"])
 def test_params_from_jax_round_trips_every_key(arch, scan_layers):
     cfg = rcfg.get_smoke_config(arch).replace(scan_layers=scan_layers)
     _, _, tree = _params(arch, cfg)

@@ -35,6 +35,17 @@ drives these main paths:
   kernels against the plain functions, and ``python -m
   repro_torch.launch.train`` at smoke size: a restart from its checkpoint
   against a straight run, and ``--elastic``;
+* sharding (``[shard]``): Hymba-1.5B at full width on a one-rank NCCL
+  group's (1, 1) ``DeviceMesh``, its parameters and AdamW state DTensors
+  placed by ``train_state_specs``: two training steps whose losses must be
+  bit-equal to the unsharded step's, and a sharded serve (a prefill, then
+  decode steps) through the flash and scan kernels on the local shards,
+  whose tokens must equal the unsharded serve's;
+* the dry-run (``[dryrun]``, ``python -m repro_torch.launch.dryrun`` in
+  subprocesses beside ``[shard]``): Hymba-1.5B x the four shapes and
+  granite-moe x train_4k on the (16, 16) mesh, meta tensors under a fake
+  group of 256 ranks, each cell's per-device flops, bytes and collectives
+  and its H100 roofline terms (a model, not a measurement);
 * the elastic layer's scheduling (``simulate_worker_availability`` at 256
   workers, a ``ClusterScheduler`` sequence) through the HLEM kernel,
   checked against the numpy backend.
@@ -208,6 +219,16 @@ TRAIN_ARGV = ["--arch", "hymba_1_5b", "--smoke", "--device", "cuda",
               "--batch", "4", "--seq-len", "24", "--log-every", "1"]
 RESTART_RTOL = 1e-5
 ELASTIC_ARGV = TRAIN_ARGV + ["--elastic", "--steps", "20", "--seed", "3"]
+# [shard]: Hymba-1.5B on a one-rank (1, 1) mesh: 2 train steps at B = 8 x
+# 512 (bit-equal to the unsharded step's), a prefill at B = 8 x 2048 and 8
+# decode steps (tokens equal to the unsharded serve's)
+SHARD_TRAIN = ("hymba_1_5b", 8, 512, 2)
+SHARD_SERVE = (8, 2048, 8)
+# [dryrun]: cells on the (16, 16) mesh, one subprocess each, run beside [shard]
+DRYRUN_CELLS = ([("hymba_1_5b", s) for s in ("train_4k", "prefill_32k",
+                                             "decode_32k", "long_500k")]
+                + [("granite_moe_3b_a800m", "train_4k")])
+DRYRUN_TIMEOUT = 600
 # the worker fleet of simulate_worker_availability: 256 spot workers under
 # heavy on-demand churn (contention 100: ~600 arrivals over the horizon)
 AVAIL_WORKERS, AVAIL_HORIZON, AVAIL_CONTENTION = 256, 3600.0, 100.0
@@ -217,6 +238,7 @@ AVAIL_WORKERS, AVAIL_HORIZON, AVAIL_CONTENTION = 256, 3600.0, 100.0
 TRAIN_LAUNCHER = r"""
 import json, os, runpy
 from repro_torch.kernels import hlem_score as hk
+from repro_torch.models.sharding import full
 from repro_torch.train import train_step as ts
 
 losses = []
@@ -228,7 +250,7 @@ def recorded(*args, **kwargs):
 
     def run(state, batch):
         state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
+        losses.append(float(full(metrics["loss"])))
         return state, metrics
     return run
 
@@ -1391,6 +1413,220 @@ def run_train_launcher(card):
     return hlem
 
 
+def start_dryrun():
+    """Starts one ``python -m repro_torch.launch.dryrun`` a cell of
+    ``DRYRUN_CELLS`` (meta tensors, meshes of CPU ranks: no card memory),
+    writing to ``build/dryrun/``.  Returns (out dir, [(arch, shape,
+    process)], start time)."""
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--device", "cpu", "--out",
+         str(out), "--no-save-ops", "--force"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for arch, shape in DRYRUN_CELLS]
+    return out, procs, time.perf_counter()
+
+
+def stop_dryrun(procs):
+    """Kills the cells still running."""
+    for _, _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def finish_dryrun(out, procs, t0):
+    """Waits for the cells (killing all on a failure) and prints one line
+    each; fails if a cell errs.  Each cell's analysis is also held against
+    the committed ``results/dryrun_torch/`` record (reported, not
+    required: another torch may place some ops differently)."""
+    try:
+        for arch, shape, p in procs:
+            try:
+                _, err = p.communicate(timeout=max(
+                    1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"dryrun {arch} {shape}: over {DRYRUN_TIMEOUT} s")
+            name = f"{arch}__{shape}__pod16x16.json"
+            path = out / name
+            if not path.exists():
+                fail(f"dryrun {arch} {shape}: exit {p.returncode}, no record: "
+                     f"{err[-2000:]}")
+            rec = json.loads(path.read_text())
+            if p.returncode or rec["status"] != "ok":
+                fail(f"dryrun {arch} {shape}: exit {p.returncode}, "
+                     f"{rec['status']}: {rec.get('error')}\n"
+                     f"{rec.get('traceback', '')[-3000:]}")
+            ana, r = rec["hlo_analysis"], rec["roofline"]
+            kept = ROOT / "results" / "dryrun_torch" / name
+            same = (json.loads(kept.read_text()).get("hlo_analysis") == ana
+                    if kept.exists() else "no record")
+            print(f"[dryrun] {arch} {shape} pod16x16: {rec['status']}, trace "
+                  f"{rec['lower_s']:.1f} s; per device: flops "
+                  f"{ana['flops']:.4e}, bytes {ana['hbm_bytes']:.4e}, "
+                  f"collective bytes {ana['collective_bytes']:.4e} "
+                  f"{ {k: f'{v:.3e}' for k, v in ana['collective_by_kind'].items()} }; "
+                  f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}; "
+                  f"H100 roofline model (not measured): compute "
+                  f"{r['compute_s'] * 1e3:.3f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}; "
+                  f"analysis equals the committed record: {same}")
+    finally:
+        stop_dryrun(procs)
+    print(f"[dryrun] {len(procs)} cells, all ok; wall "
+          f"{time.perf_counter() - t0:.1f} s (beside [shard])")
+
+
+def run_shard(torch, ops, fa, ss, card):
+    """Hymba-1.5B at full width on a one-rank NCCL group's (1, 1) mesh: the
+    parameters and AdamW state DTensors placed by ``train_state_specs``,
+    two train steps whose losses must be bit-equal to the unsharded
+    step's (one rank does the same arithmetic), the second under the
+    dry-run's analyzer (its collectives by kind) and an eval step under
+    ``CommDebugMode`` (whose module tracker cannot follow a remat
+    backward); then a sharded serve through the kernels on the
+    local shards, its tokens equal to the unsharded serve's and its tapped
+    kernel calls held against their plain versions.  Ends the group.
+    Returns (flash launches, scan launches, attention err, scan errs)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch.train as tt
+    from repro_torch.configs import get_config
+    from repro_torch.elastic.elastic import shard_batch
+    from repro_torch.launch.hlo_analyzer import analyze
+    from repro_torch.launch.mesh import destroy_group, init_group, make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.model import init_params, shard_params
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    from repro_torch.train.train_step import batch_to_device
+
+    arch, b, s, steps = SHARD_TRAIN
+    cfg = get_config(arch)
+    init_group("nccl", 0, 1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        ds = tt.SyntheticDataset(cfg, tt.DataConfig(batch=b, seq_len=s, seed=0))
+        batches = [ds.next_batch() for _ in range(steps)]
+        step_fn = tt.make_train_step(cfg)
+
+        def state0():
+            return tt.init_train_state(
+                cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+
+        state, want, plain_s = state0(), [], []
+        for bt in batches:
+            batch = batch_to_device(bt, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            want.append(float(m["loss"]))
+            plain_s.append(time.perf_counter() - t0)
+        del state, m
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = ss.LAUNCHES = 0
+        got, shard_s = [], []
+        with sharding.use_mesh(mesh):
+            state = sharding.attach(state0(), tt.train_state_specs(cfg))
+            placed = sum(isinstance(p, torch.distributed.tensor.DTensor)
+                         for p in state.params.parameters())
+            for i, bt in enumerate(batches):
+                batch = shard_batch(bt, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == steps - 1:
+                    res = {}
+                    ana = analyze(lambda: res.update(out=step_fn(state, batch)))
+                    state, m = res.pop("out")
+                else:
+                    state, m = step_fn(state, batch)
+                got.append(float(sharding.full(m["loss"])))
+                shard_s.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with CommDebugMode() as comm:
+                tt.make_eval_step(cfg)(state.params, batch)
+        comm_counts = {str(k).split(".")[-1]: v
+                       for k, v in comm.get_comm_counts().items()}
+        n = sum(p.numel() for p in state.params.parameters())
+        print(f"[shard] {cfg.name} at full width ({n:,} parameters, "
+              f"{cfg.dtype}), {placed} DTensor parameters on the (1, 1) "
+              f"('data', 'model') mesh of a one-rank NCCL group, AdamW state "
+              f"placed by train_state_specs; B={b} x {s}: sharded losses "
+              f"{got} vs unsharded {want}; bit-equal: {got == want}; step "
+              f"walls sharded {', '.join(f'{x:.2f}' for x in shard_s)} s "
+              f"(the last under the analyzer) vs unsharded "
+              f"{', '.join(f'{x:.2f}' for x in plain_s)} s (host clock, "
+              f"synchronized); peak memory {peak:.2f} GiB; the last step's "
+              f"collectives {ana.collective_counts} ({ana.collective_bytes:.4e}"
+              f" operand bytes); CommDebugMode counts of a sharded eval step "
+              f"{comm_counts}; no kernel launched: "
+              f"{(fa.LAUNCHES, ss.LAUNCHES) == (0, 0)}; card {card}")
+        if got != want:
+            fail(f"shard: sharded losses {got} differ from the unsharded "
+                 f"step's {want}")
+        if fa.LAUNCHES or ss.LAUNCHES:
+            fail("shard: the training step launched a kernel")
+        del state, m, batch
+        torch.cuda.empty_cache()
+
+        # the sharded serve against the unsharded one, same weights
+        b, s, n_dec = SHARD_SERVE
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(1))
+
+        def serve(tokens):
+            prefill = make_prefill_step(cfg, s + n_dec)
+            step = make_serve_step(cfg)
+            lg, st = prefill(params, tokens)
+            out = [sharding.full(lg).argmax(-1)]
+            for _ in range(n_dec):
+                tok = sharding.attach(out[-1][:, None], ("batch", "seq"))
+                lg, st = step(params, tok, st)
+                out.append(sharding.full(lg)[:, -1].argmax(-1))
+            torch.cuda.synchronize()
+            return torch.stack(out, 1)
+
+        t0 = time.perf_counter()
+        plain_tokens = serve(prompts)
+        plain_wall = time.perf_counter() - t0
+        # DTensors that inference-mode code takes views of are made there
+        with torch.inference_mode():
+            shard_params(params, mesh)
+        fa.LAUNCHES = ss.LAUNCHES = 0
+        with (torch.inference_mode(), sharding.use_mesh(mesh),
+              KernelTap(torch, ops) as tap):
+            t0 = time.perf_counter()
+            shard_tokens = serve(sharding.attach(prompts, ("batch", "seq")))
+            shard_wall = time.perf_counter() - t0
+        launches = (fa.LAUNCHES, ss.LAUNCHES)
+        same = torch.equal(shard_tokens, plain_tokens)
+        print(f"[shard] sharded serve, prefill B={b} x {s} then {n_dec} decode "
+              f"steps on the (1, 1) mesh: tokens equal the unsharded serve's: "
+              f"{same} ({shard_tokens.numel()} tokens); wall {shard_wall:.2f} s "
+              f"sharded vs {plain_wall:.2f} s unsharded (host clock); kernel "
+              f"launches flash_attention {launches[0]}, ssm_scan {launches[1]}")
+        if not same:
+            fail("shard: the sharded serve's tokens differ from the unsharded "
+                 "serve's")
+        if launches != (cfg.n_layers, cfg.n_layers * (1 + n_dec)):
+            fail(f"shard: kernel launches {launches}, expected "
+                 f"({cfg.n_layers}, {cfg.n_layers * (1 + n_dec)})")
+        att_err, scan_err = check_tapped(torch, fa, ss, tap,
+                                         "Hymba sharded serve")
+        del params, tap
+        torch.cuda.empty_cache()
+    finally:
+        destroy_group()
+    return launches[0], launches[1], att_err, scan_err
+
+
 def run_elastic(torch, hk, tc, card):
     """The elastic layer's scheduling through the HLEM kernel against the
     numpy backend: ``simulate_worker_availability`` over 256 spot workers
@@ -1979,6 +2215,21 @@ def main() -> int:
 
     phase("training")
 
+    # -- sharding on a one-rank mesh, the dry-run's cells beside it -----------------
+    dry = start_dryrun()
+    try:
+        shard_fa, shard_ss, shard_att, shard_scan = run_shard(
+            torch, ops, fa, ss, card)
+    except BaseException:
+        stop_dryrun(dry[1])
+        raise
+    finish_dryrun(*dry)
+    att_err["bfloat16"] = max(att_err["bfloat16"], shard_att)
+    scan_err["bfloat16"] = (max(scan_err["bfloat16"][0], shard_scan[0]),
+                            max(scan_err["bfloat16"][1], shard_scan[1]))
+
+    phase("sharding and dry-run")
+
     # -- the training launcher: restart from a checkpoint, and --elastic -------------
     train_launches = run_train_launcher(card)
 
@@ -1998,10 +2249,10 @@ def main() -> int:
           f"elastic scheduling {elastic_launches}; total {hlem_launches}")
     print(f"[check] flash_attention launches on the main paths: Hymba serve "
           f"{fa_launches}, granite-moe serve {moe_fa_launches}, Hymba eval "
-          f"step {eval_fa}; ssm_scan: Hymba serve {ss_launches}, eval step "
-          f"{eval_ss}")
-    fa_launches += moe_fa_launches + eval_fa
-    ss_launches += eval_ss
+          f"step {eval_fa}, sharded serve {shard_fa}; ssm_scan: Hymba serve "
+          f"{ss_launches}, eval step {eval_ss}, sharded serve {shard_ss}")
+    fa_launches += moe_fa_launches + eval_fa + shard_fa
+    ss_launches += eval_ss + shard_ss
     kernels = []
     for name, b, line, launches, err in (
             ("hlem_score", 1, 137, hlem_launches, err_single),

@@ -12,11 +12,20 @@ so the loss trajectory is comparable to the uninterrupted run.
 
 A port of the reference package's ``elastic/elastic.py``.  The availability
 timeline comes from the port's simulator, whose ``HlemVmpAdjusted`` scores
-through the HLEM kernel on the card by default.  A mesh is an array of
-``torch.device``s; a data-parallel step across more than one device is not
-ported yet (``DeviceMesh`` and process groups, ROADMAP Queue 1 item 7), so
-the trainer runs at width 1: emergency saves on interruptions, restore on
-re-configure, as the reference does on one device.
+through the HLEM kernel on the card by default.
+
+SPMD, as JAX runs it: every one of ``max_workers`` ranks (one process each,
+a default process group over all of them: ``launch.mesh.spawn``, or a
+single process, which gets a one-rank group of its own that lasts until
+``launch.mesh.destroy_group``) runs the same
+``train_elastic`` over the same timeline.  A mesh is a ``DeviceMesh`` over
+ranks ``0..n_data-1`` (``build_mesh``; every rank creates it, in the same
+order); ``configure`` restores the last checkpoint onto the new mesh's
+placements (``train_state_specs``).  The ranks in the mesh each take their
+``batch/n_data`` slice of the same global batch and step; the gradients
+come out reduced through DTensor.  Ranks outside the mesh skip the steps
+and meet the checkpoint barriers.  Losses are read on every mesh rank, and
+rank 0 writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..core import (
     HlemVmpAdjusted,
@@ -34,19 +44,21 @@ from ..core import (
     make_spot,
     resources,
 )
+from ..launch.mesh import ensure_group, make_mesh
 from ..models.config import ArchConfig
+from ..models.sharding import attach, full, tree_shardings, use_mesh
 from ..train.data import DataConfig, SyntheticDataset
 from ..train.train_step import (
     TrainState,
     batch_to_device,
     init_train_state,
     make_train_step,
+    train_state_specs,
 )
 from .checkpoint import CheckpointManager
 
-DATA_PARALLEL_TODO = ("a data-parallel step across more than one device is "
-                      "not ported yet: ROADMAP Queue 1 item 7 (DeviceMesh and "
-                      "process groups)")
+#: logical axes of a training batch
+BATCH_SPECS = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
 
 
 # ---------------------------------------------------------------------------
@@ -131,32 +143,23 @@ def _pow2_floor(n: int) -> int:
     return p
 
 
-def device_count(device) -> int:
-    """Devices of ``device``'s type this process has: the CUDA cards, or 1
-    for the CPU."""
-    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+def build_mesh(n_data: int, n_model: int = 1, device="cuda") -> DeviceMesh:
+    """A (data, model) mesh over ranks ``0..n_data*n_model-1`` of the
+    default group (a one-rank group is started if none is running); raises
+    ``ValueError`` when the group has fewer ranks.  Every rank of the group
+    calls it, in the same order."""
+    ensure_group(device)
+    return make_mesh((n_data, n_model), ("data", "model"),
+                     device=torch.device(device).type)
 
 
-def build_mesh(n_data: int, n_model: int = 1, device="cuda") -> np.ndarray:
-    """The first ``n_data * n_model`` devices of ``device``'s type as a
-    (data, model) array; raises when the process has fewer."""
-    n, have = n_data * n_model, device_count(device)
-    if n > have:
-        raise ValueError(f"need {n} devices, have {have}")
-    device = torch.device(device)
-    devs = ([torch.device("cuda", i) for i in range(n)]
-            if device.type == "cuda" else [device] * n)
-    mesh = np.empty(n, dtype=object)
-    mesh[:] = devs
-    return mesh.reshape(n_data, n_model)
-
-
-def require_one_device(mesh: np.ndarray) -> torch.device:
-    """The mesh's only device; raises ``NotImplementedError`` for a wider
-    mesh."""
-    if mesh.size > 1:
-        raise NotImplementedError(f"mesh {mesh.shape}: {DATA_PARALLEL_TODO}")
-    return mesh.flat[0]
+def shard_batch(batch, mesh: DeviceMesh):
+    """A dataset batch (numpy, the same global batch on every rank) as
+    DTensors on ``mesh``, split along the batch: each rank holds its
+    ``batch/n_data`` rows."""
+    tensors = batch_to_device(batch, mesh.device_type)
+    with use_mesh(mesh):
+        return attach(tensors, {k: BATCH_SPECS[k] for k in tensors})
 
 
 @dataclass
@@ -183,11 +186,16 @@ class ElasticTrainer:
         self.device = torch.device(device)
         self.ckpt = CheckpointManager(ckpt_dir, keep_n=2, async_save=False)
         self.dataset = SyntheticDataset(cfg, dcfg)
-        self.mesh: Optional[np.ndarray] = None
+        self.mesh: Optional[DeviceMesh] = None
         self.state: Optional[TrainState] = None
+        self.step = 0               # on every rank, in the mesh or not
         self._step_fn = None
         self.n_data = 0
         self.report = ElasticReport()
+
+    @property
+    def in_mesh(self) -> bool:
+        return self.mesh is not None and self.mesh.get_coordinate() is not None
 
     # -- (re)configuration ---------------------------------------------------
     def _init_state(self, device) -> TrainState:
@@ -197,47 +205,59 @@ class ElasticTrainer:
     def configure(self, n_workers: int) -> None:
         """(Re)build mesh for n_workers and restore/initialize state on it."""
         n_data = max(1, _pow2_floor(min(n_workers, self.max_workers)))
-        if n_data == self.n_data and self.state is not None:
+        if n_data == self.n_data and self.mesh is not None and (
+                self.state is not None or not self.in_mesh):
             return
         prev_state_exists = self.state is not None or \
             self.ckpt.latest_step() is not None
         self.n_data = n_data
         self.mesh = build_mesh(n_data, device=self.device)
-        device = require_one_device(self.mesh)
         self.state = None
-        state = self._init_state(device)
+        meta = {}
+        if self.in_mesh:
+            with use_mesh(self.mesh):
+                specs = train_state_specs(self.cfg)
+                state = self._init_state(self.device)
+                if prev_state_exists:
+                    state, meta = self.ckpt.restore(
+                        state, shardings=tree_shardings(specs))
+                else:
+                    state = attach(state, specs)
+            self.state = state
+            self._step_fn = make_train_step(self.cfg, impl=self.impl)
+        elif prev_state_exists:
+            meta = self.ckpt.read_meta()
         if prev_state_exists:
-            state, meta = self.ckpt.restore(state)
+            self.step = int(meta["step"])
             if "data_step" in meta:
                 self.dataset.load_state_dict(
                     {"step": meta["data_step"], "seed": self.dcfg.seed})
             self.report.restores += 1
-        self.state = state
-        self._step_fn = make_train_step(self.cfg, impl=self.impl)
         self.report.rescales += 1
-        self.report.mesh_history.append((int(self.state.step), n_data))
+        self.report.mesh_history.append((self.step, n_data))
 
     # -- event handlers --------------------------------------------------------
     def on_warning(self) -> None:
-        """Spot interruption warning: emergency checkpoint."""
+        """Spot interruption warning: emergency checkpoint (every rank)."""
         self.ckpt.save_on_warning(
-            self.state, int(self.state.step),
-            {"data_step": self.dataset.step})
+            self.state, self.step, {"data_step": self.dataset.step})
         self.report.emergency_saves += 1
 
     # -- training -------------------------------------------------------------
     def run_steps(self, n: int, checkpoint_every: int = 50) -> None:
-        if self.state is None:
+        if self.mesh is None:
             raise RuntimeError("configure() first")
-        device = self.mesh.flat[0]
         for _ in range(n):
-            batch = batch_to_device(self.dataset.next_batch(), device)
-            self.state, metrics = self._step_fn(self.state, batch)
+            batch = self.dataset.next_batch()
+            self.step += 1
             self.report.steps_run += 1
-            self.report.losses.append(float(metrics["loss"]))
-            step = int(self.state.step)
-            if checkpoint_every and step % checkpoint_every == 0:
-                self.ckpt.save(self.state, step,
+            if self.in_mesh:
+                with use_mesh(self.mesh):
+                    self.state, metrics = self._step_fn(
+                        self.state, shard_batch(batch, self.mesh))
+                self.report.losses.append(float(full(metrics["loss"])))
+            if checkpoint_every and self.step % checkpoint_every == 0:
+                self.ckpt.save(self.state, self.step,
                                {"data_step": self.dataset.step})
 
     def train_elastic(self, total_steps: int,
@@ -266,7 +286,7 @@ class ElasticTrainer:
                     self.on_warning()          # save within warning window
                 if _pow2_floor(new_workers) != self.n_data:
                     # final sync checkpoint then re-mesh + restore
-                    self.ckpt.save(self.state, int(self.state.step),
+                    self.ckpt.save(self.state, self.step,
                                    {"data_step": self.dataset.step},
                                    block=True)
                     self.state = None

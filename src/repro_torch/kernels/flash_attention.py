@@ -81,8 +81,10 @@ def mha_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     group = h // hkv
     n_chunks = -(-tk // chunk)
     pad = n_chunks * chunk - tk
-    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
-    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    kp, vp = k, v
+    if pad:
+        kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
     qf = q.to(torch.float32)
     qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
     m = torch.full((b, h, tq), float("-inf"), dtype=torch.float32, device=q.device)

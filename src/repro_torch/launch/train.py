@@ -3,15 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1_5b
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1_5b --smoke --device cpu
 
-Runs real training on one device.  Supports checkpoint/restart (state and
-data cursor), periodic + final checkpointing, and elastic training driven
-by the spot-market simulator (``--elastic``): emergency checkpoints on the
-simulated interruptions, whose timeline the HLEM kernel scores on a card.
-The flags are the reference launcher's plus ``--device`` (default
+Runs real training, its state placed on a (data, model) ``DeviceMesh``
+as DTensors (``train_state_specs``).  Supports checkpoint/restart (state
+and data cursor), periodic + final checkpointing, and elastic training
+driven by the spot-market simulator (``--elastic``): emergency checkpoints
+on the simulated interruptions, whose timeline the HLEM kernel scores on a
+card.  The flags are the reference launcher's plus ``--device`` (default
 ``cuda``).  The step runs the model's plain, differentiable functions
-(``impl="xla"``), as the reference's does.  ``--n-data 0`` means every
-device of ``--device``'s type; a data-parallel width above 1 is not ported
-yet and raises.
+(``impl="xla"``), as the reference's does.  A process alone is a one-rank
+group (``--n-data 0`` means every rank of the group); a mesh wider than
+the group raises.
 """
 from __future__ import annotations
 
@@ -29,9 +30,15 @@ from ..elastic import (
     build_mesh,
     simulate_worker_availability,
 )
-from ..elastic.elastic import device_count, require_one_device
+from ..elastic.elastic import shard_batch
+from ..launch.mesh import available_devices, destroy_group, ensure_group
+from ..models.sharding import attach, full, tree_shardings, use_mesh
 from ..train.data import DataConfig, SyntheticDataset
-from ..train.train_step import batch_to_device, init_train_state, make_train_step
+from ..train.train_step import (
+    init_train_state,
+    make_train_step,
+    train_state_specs,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -65,8 +72,17 @@ def main(argv=None) -> int:
         raise RuntimeError("no CUDA device: pass --device cpu to train on the "
                            "CPU")
 
+    own_group = ensure_group(device)
+    try:
+        return _run(args, cfg, dcfg, device)
+    finally:
+        if own_group:
+            destroy_group()
+
+
+def _run(args, cfg, dcfg, device) -> int:
+    n = args.n_data or available_devices(device)
     if args.elastic:
-        n = args.n_data or device_count(device)
         events = simulate_worker_availability(n, horizon=args.steps,
                                               seed=args.seed, device=device)
         tr = ElasticTrainer(cfg, dcfg, args.ckpt_dir, max_workers=n,
@@ -77,35 +93,39 @@ def main(argv=None) -> int:
         print(f"final loss {rep.losses[-1]:.4f}")
         return 0
 
-    mesh = build_mesh(args.n_data or device_count(device), device=device)
-    device = require_one_device(mesh)
+    mesh = build_mesh(n, device=device)
     ckpt = CheckpointManager(args.ckpt_dir, keep_n=3)
     dataset = SyntheticDataset(cfg, dcfg)
 
-    state = init_train_state(
-        cfg, torch.Generator(device=device).manual_seed(args.seed), device=device)
-    latest = ckpt.latest_step()
-    if latest is not None:
-        state, meta = ckpt.restore(state)
-        dataset.load_state_dict({"step": meta.get("data_step", 0),
-                                 "seed": args.seed})
-        print(f"restored from step {latest}")
-    step_fn = make_train_step(cfg)
+    with use_mesh(mesh):
+        specs = train_state_specs(cfg)
+        state = init_train_state(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device=device)
+        latest = ckpt.latest_step()
+        if latest is not None:
+            state, meta = ckpt.restore(state, shardings=tree_shardings(specs))
+            dataset.load_state_dict({"step": meta.get("data_step", 0),
+                                     "seed": args.seed})
+            print(f"restored from step {latest}")
+        else:
+            state = attach(state, specs)
+        step_fn = make_train_step(cfg)
 
-    t0 = time.time()
-    for i in range(args.steps):
-        batch = batch_to_device(dataset.next_batch(), device)
-        state, metrics = step_fn(state, batch)
-        step = int(state.step)
-        if step % args.log_every == 0:
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"({(time.time()-t0)/max(i+1,1):.2f}s/step)", flush=True)
-        if args.checkpoint_every and step % args.checkpoint_every == 0:
-            ckpt.save(state, step, {"data_step": dataset.step})
-    ckpt.save(state, int(state.step), {"data_step": dataset.step},
-              block=True)
-    ckpt.wait()
+        t0 = time.time()
+        for i in range(args.steps):
+            batch = shard_batch(dataset.next_batch(), mesh)
+            state, metrics = step_fn(state, batch)
+            step = int(state.step)
+            if step % args.log_every == 0:
+                print(f"step {step:5d} loss {float(full(metrics['loss'])):.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"({(time.time()-t0)/max(i+1,1):.2f}s/step)", flush=True)
+            if args.checkpoint_every and step % args.checkpoint_every == 0:
+                ckpt.save(state, step, {"data_step": dataset.step})
+        ckpt.save(state, int(state.step), {"data_step": dataset.step},
+                  block=True)
+        ckpt.wait()
     print("done")
     return 0
 

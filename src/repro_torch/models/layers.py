@@ -17,6 +17,13 @@ versions for CPU tensors, the CUDA kernels for CUDA tensors.  With
 differentiable ``mha_chunked_ref`` and ``ssm_scan_ref`` on any device.
 Decode attention and the MoE block are plain tensor code, as in the
 reference.  Decode updates the KV cache in place.
+
+Each module's ``specs(cfg)`` gives the logical axis names of its
+parameters (the reference's ``init_*`` second return), and the forward
+passes carry the reference's ``constrain`` calls at the same points: under
+an active mesh (``sharding.use_mesh``) with DTensor parameters they
+redistribute activations as the reference's sharding constraints do; on
+plain tensors they do nothing.
 """
 from __future__ import annotations
 
@@ -25,11 +32,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
 from ..kernels.flash_attention import mha_chunked_ref
 from ..kernels.ssm_scan import ssm_scan_ref
 from .config import ArchConfig
+from .sharding import constrain, reshape
 
 #: ``impl`` values of the model's forward: the kernels (on CUDA tensors) or
 #: the plain functions the reference trains with
@@ -85,6 +94,11 @@ class Attention(nn.Module):
         self.wv = empty_param((d, hkv), dt, device)
         self.wo = empty_param((hq, d), dt, device)
 
+    @staticmethod
+    def specs(cfg: ArchConfig) -> dict:
+        return {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+                "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+
     def forward(self, x: torch.Tensor, pos0: int = 0, impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Full-sequence attention: x (B,S,d) -> (out (B,S,d), (k, v)),
@@ -92,9 +106,12 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = (x @ self.wq).reshape(b, s, h, hd).transpose(1, 2)
-        k = (x @ self.wk).reshape(b, s, hkv, hd).transpose(1, 2)
-        v = (x @ self.wv).reshape(b, s, hkv, hd).transpose(1, 2)
+        q = constrain(x @ self.wq, "batch", "seq", "heads")
+        k = constrain(x @ self.wk, "batch", "seq", "kv_heads")
+        v = constrain(x @ self.wv, "batch", "seq", "kv_heads")
+        q = reshape(q, b, s, h, hd).transpose(1, 2)
+        k = reshape(k, b, s, hkv, hd).transpose(1, 2)
+        v = reshape(v, b, s, hkv, hd).transpose(1, 2)
         positions = pos0 + torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -103,8 +120,9 @@ class Attention(nn.Module):
                                 chunk=cfg.attention_chunk)
         else:
             o = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
-        o = o.transpose(1, 2).reshape(b, s, h * hd)
-        return o @ self.wo, (k, v)
+        o = constrain(o, "batch", "heads", "seq", "head_dim")
+        o = reshape(o.transpose(1, 2), b, s, h * hd)
+        return constrain(o @ self.wo, "batch", "res_seq", "embed"), (k, v)
 
     def decode(self, x: torch.Tensor,
                cache: Tuple[torch.Tensor, torch.Tensor], pos: int
@@ -114,7 +132,10 @@ class Attention(nn.Module):
 
         With a sliding window and a cache of exactly W slots the cache is a
         ring buffer: position p sits in slot p mod W, and masking uses the
-        positions reconstructed from the ring, as in the reference."""
+        positions reconstructed from the ring, as in the reference.  A
+        DTensor cache (its seq dim may be sharded: ``kv_seq``) takes the
+        new token through an elementwise select over the slots, which keeps
+        every rank's shard local; a plain cache, one indexed write."""
         cfg = self.cfg
         b = x.shape[0]
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -122,21 +143,28 @@ class Attention(nn.Module):
         t_cache = kc.shape[2]
         ring = cfg.sliding_window is not None and t_cache == cfg.sliding_window
 
-        q = (x @ self.wq).reshape(b, 1, h, hd).transpose(1, 2)
-        k = (x @ self.wk).reshape(b, 1, hkv, hd).transpose(1, 2)
-        v = (x @ self.wv).reshape(b, 1, hkv, hd).transpose(1, 2)
+        q = reshape(x @ self.wq, b, 1, h, hd).transpose(1, 2)
+        k = reshape(x @ self.wk, b, 1, hkv, hd).transpose(1, 2)
+        v = reshape(x @ self.wv, b, 1, hkv, hd).transpose(1, 2)
         posv = torch.arange(pos, pos + 1, device=x.device)   # no host copy
         q = rope(q, posv, cfg.rope_theta)
         k = rope(k, posv, cfg.rope_theta)
 
         # the reference's dynamic_update_slice clamps the slot into range
         slot = pos % t_cache if ring else min(pos, t_cache - 1)
-        kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
-        vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
+        if isinstance(kc, DTensor):
+            at = (torch.arange(t_cache, device=x.device) == slot)[:, None]
+            kc.copy_(torch.where(at, k.to(kc.dtype), kc))
+            vc.copy_(torch.where(at, v.to(vc.dtype), vc))
+        else:
+            kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
+            vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
+        kc = constrain(kc, "batch", "kv_heads", "kv_seq", None)
+        vc = constrain(vc, "batch", "kv_heads", "kv_seq", None)
 
         # fold the query-head group into the query; logits in f32
         group = h // hkv
-        qg = q.reshape(b, hkv, group, hd).to(torch.float32)
+        qg = reshape(q, b, hkv, group, hd).to(torch.float32)
         s = torch.einsum("bkgd,bktd->bkgt", qg, kc.to(torch.float32)) * (hd ** -0.5)
         idx = torch.arange(t_cache, device=x.device)
         kpos = pos - torch.remainder(slot - idx, t_cache) if ring else idx
@@ -147,8 +175,9 @@ class Attention(nn.Module):
         pr = torch.softmax(s, dim=-1).to(vc.dtype)                 # (B,Hkv,G,T)
         o = torch.einsum("bkgt,bktd->bkgd", pr.to(torch.float32),
                          vc.to(torch.float32))
-        o = o.reshape(b, h, 1, hd).to(x.dtype).transpose(1, 2).reshape(b, 1, h * hd)
-        return o @ self.wo, (kc, vc)
+        o = reshape(reshape(o, b, h, 1, hd).to(x.dtype).transpose(1, 2),
+                    b, 1, h * hd)
+        return constrain(o @ self.wo, "batch", "seq", "embed"), (kc, vc)
 
 
 # ---------------------------------------------------------------------------
@@ -167,11 +196,23 @@ class MLP(nn.Module):
             self.w_in = empty_param((d, f), dt, device)
             self.w_out = empty_param((f, d), dt, device)
 
+    @staticmethod
+    def specs(cfg: ArchConfig) -> dict:
+        if cfg.mlp == "gated_silu":
+            return {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+                    "w_down": ("ff", "fsdp")}
+        return {"w_in": ("fsdp", "ff"), "w_out": ("ff", "fsdp")}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated:
-            return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+            g = constrain(x @ self.w_gate, "batch", "seq", "ff")
+            u = constrain(x @ self.w_up, "batch", "seq", "ff")
+            return constrain((F.silu(g) * u) @ self.w_down,
+                             "batch", "res_seq", "embed")
         # the reference's jax.nn.gelu defaults to the tanh approximation
-        return F.gelu(x @ self.w_in, approximate="tanh") @ self.w_out
+        h = constrain(x @ self.w_in, "batch", "seq", "ff")
+        return constrain(F.gelu(h, approximate="tanh") @ self.w_out,
+                         "batch", "res_seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -195,22 +236,24 @@ def _moe_route(eidx: torch.Tensor, n_experts: int, cap: int):
     (G, g, K) bool, table (G, E*cap) slot -> token id, the sentinel g where
     a slot is empty)."""
     n_groups, g, k = eidx.shape
-    flat_e = eidx.reshape(n_groups, g * k)
-    counts = torch.zeros((n_groups, n_experts), dtype=torch.long,
-                         device=eidx.device)
-    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    # one rank routes its own groups in full
+    eidx = constrain(eidx, "groups", None, None)
+    flat_e = reshape(eidx, n_groups, g * k)
+    # out-of-place scatters: a sharded run places their results freely
+    counts = flat_e.new_zeros((n_groups, n_experts)).scatter_add(
+        1, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=1) - counts
     order = torch.argsort(flat_e, dim=1, stable=True)
     ar = torch.arange(g * k, device=eidx.device).expand(n_groups, -1)
-    rank = torch.empty_like(flat_e).scatter_(1, order, ar)
+    rank = torch.empty_like(flat_e).scatter(1, order, ar)
     pos = rank - torch.gather(starts, 1, flat_e)
     keep = pos < cap
     overflow = n_experts * cap
     slot = torch.where(keep, flat_e * cap + pos, overflow)
     tok = torch.where(keep, ar // k, g)
-    table = torch.full((n_groups, overflow + 1), g, dtype=torch.long,
-                       device=eidx.device).scatter_(1, slot, tok)[:, :overflow]
-    return slot, keep.reshape(n_groups, g, k), table
+    table = flat_e.new_full((n_groups, overflow + 1), g).scatter(
+        1, slot, tok)[:, :overflow]
+    return slot, reshape(keep, n_groups, g, k), table
 
 
 class MoE(nn.Module):
@@ -229,6 +272,13 @@ class MoE(nn.Module):
         self.w_up = empty_param((e, d, f), dt, device)
         self.w_down = empty_param((e, f, d), dt, device)
 
+    @staticmethod
+    def specs(cfg: ArchConfig) -> dict:
+        return {"router": ("embed", "experts"),
+                "w_gate": ("experts", "fsdp", "expert_ff"),
+                "w_up": ("experts", "fsdp", "expert_ff"),
+                "w_down": ("experts", "expert_ff", "fsdp")}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, S, d) -> (B, S, d)."""
         cfg = self.cfg
@@ -237,10 +287,10 @@ class MoE(nn.Module):
         t = b * s
         g = min(cfg.moe_group_size, t)
         n_groups = -(-t // g)
-        xt = x.reshape(t, d)
+        xt = reshape(x, t, d)
         if n_groups * g != t:
             xt = F.pad(xt, (0, 0, 0, n_groups * g - t))
-        xt = xt.reshape(n_groups, g, d)
+        xt = constrain(reshape(xt, n_groups, g, d), "groups", None, "embed")
         cap = max(1, int(g * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
 
         probs = torch.softmax(xt.to(torch.float32) @ self.router, dim=-1)
@@ -250,19 +300,27 @@ class MoE(nn.Module):
 
         groups = torch.arange(n_groups, device=x.device)[:, None]
         x_pad = torch.cat([xt, xt.new_zeros((n_groups, 1, d))], dim=1)
-        xe = x_pad[groups, table].reshape(n_groups, e, cap, d)
-        hg = torch.einsum("Gecd,edf->Gecf", xe, self.w_gate)
-        hu = torch.einsum("Gecd,edf->Gecf", xe, self.w_up)
-        ye = torch.einsum("Gecf,efd->Gecd", F.silu(hg) * hu, self.w_down)
+        xe = reshape(x_pad[groups, table], n_groups, e, cap, d)
+        xe = constrain(xe, "groups", "experts", "capacity", "embed")
+        # gather the experts' ZeRO-3 (fsdp) shards before use, as GSPMD
+        # does for the reference: each rank keeps only its own experts
+        w_gate, w_up, w_down = (constrain(w, "experts", None, None) for w in
+                                (self.w_gate, self.w_up, self.w_down))
+        hg = torch.einsum("Gecd,edf->Gecf", xe, w_gate)
+        hu = torch.einsum("Gecd,edf->Gecf", xe, w_up)
+        ye = torch.einsum("Gecf,efd->Gecd", F.silu(hg) * hu, w_down)
+        ye = constrain(ye, "groups", "experts", "capacity", "embed")
 
-        ye_pad = torch.cat([ye.reshape(n_groups, e * cap, d),
+        ye_pad = torch.cat([reshape(ye, n_groups, e * cap, d),
                             ye.new_zeros((n_groups, 1, d))], dim=1)
-        picked = ye_pad[groups, slot].reshape(n_groups, g, k, d)
+        picked = reshape(ye_pad[groups, slot], n_groups, g, k, d)
         w = torch.where(keep, gate, 0.0).to(ye.dtype)[..., None]
         out = picked[:, :, 0] * w[:, :, 0]
         for j in range(1, k):
             out = out + picked[:, :, j] * w[:, :, j]
-        return out.reshape(n_groups * g, d)[:t].reshape(b, s, d)
+        out = constrain(out, "groups", None, "embed")
+        out = reshape(reshape(out, n_groups * g, d)[:t], b, s, d)
+        return constrain(out, "batch", "res_seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +358,14 @@ class Mamba(nn.Module):
         self.d_skip = empty_param((di,), f32, device)
         self.out_proj = empty_param((di, d), dt, device)
 
+    @staticmethod
+    def specs(cfg: ArchConfig) -> dict:
+        return {"in_proj": ("fsdp", "ff"), "conv_w": ("ff", "conv"),
+                "conv_b": ("ff",), "x_proj": ("ff", None),
+                "dt_proj": (None, "ff"), "dt_bias": ("ff",),
+                "a_log": ("ff", "state"), "d_skip": ("ff",),
+                "out_proj": ("ff", "fsdp")}
+
     def forward(self, x: torch.Tensor,
                 state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 impl: str = "kernel"):
@@ -310,14 +376,17 @@ class Mamba(nn.Module):
         di, ns, dr = cfg.dinner, cfg.ssm_state, cfg.dtrank
         h0, conv0 = state if state is not None else (None, None)
 
-        xin, z = torch.split(x @ self.in_proj, di, dim=-1)
+        xz = constrain(x @ self.in_proj, "batch", "seq", "ff")
+        xin, z = torch.split(xz, di, dim=-1)
         xc = F.silu(_causal_conv(xin, self.conv_w, self.conv_b, conv0))
         # roll the conv state forward: the last W-1 raw inputs
         prefix = conv0 if conv0 is not None else torch.zeros(
             (b, cfg.conv_width - 1, di), dtype=x.dtype, device=x.device)
         new_conv = torch.cat([prefix, xin], dim=1)[:, s:s + cfg.conv_width - 1]
 
-        proj = xc @ self.x_proj                                   # (B,S,dr+2N)
+        # x_proj contracts the sharded channels: reduce the partial sums
+        # once here, not once a step inside the scan
+        proj = constrain(xc @ self.x_proj, "batch", "seq", None)  # (B,S,dr+2N)
         dt_raw = proj[..., :dr]
         b_in = proj[..., dr:dr + ns]
         c_in = proj[..., dr + ns:]
@@ -328,11 +397,13 @@ class Mamba(nn.Module):
         scan = ssm_scan_ref if impl == "xla" else ops.selective_scan
         y, h_t = scan(xc, dt, a, b_in, c_in, self.d_skip, h0)
         y = y * F.silu(z)
-        return y @ self.out_proj, (h_t, new_conv)
+        out = constrain(y @ self.out_proj, "batch", "res_seq", "embed")
+        return out, (h_t, new_conv)
 
-    def decode(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
+    def decode(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],
+               impl: str = "kernel"):
         """Single-token decode: x (B,1,d); state (h (B,di,N), conv (B,W-1,di))."""
-        return self.forward(x, state)
+        return self.forward(x, state, impl=impl)
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +417,11 @@ class HymbaMixer(nn.Module):
         self.norm_a = empty_param((cfg.d_model,), torch.float32, device)
         self.norm_s = empty_param((cfg.d_model,), torch.float32, device)
 
+    @staticmethod
+    def specs(cfg: ArchConfig) -> dict:
+        return {"attn": Attention.specs(cfg), "mamba": Mamba.specs(cfg),
+                "norm_a": ("embed",), "norm_s": ("embed",)}
+
     def _combine(self, ao, so, x):
         out = 0.5 * (rmsnorm(ao, self.norm_a) + rmsnorm(so, self.norm_s))
         return out.to(x.dtype)
@@ -356,7 +432,8 @@ class HymbaMixer(nn.Module):
         so, new_state = self.mamba(x, state, impl=impl)
         return self._combine(ao, so, x), kv, new_state
 
-    def decode(self, x: torch.Tensor, kv_cache, ssm_state, pos: int):
+    def decode(self, x: torch.Tensor, kv_cache, ssm_state, pos: int,
+               impl: str = "kernel"):
         ao, kv = self.attn.decode(x, kv_cache, pos)
-        so, new_state = self.mamba.decode(x, ssm_state)
+        so, new_state = self.mamba.decode(x, ssm_state, impl=impl)
         return self._combine(ao, so, x), kv, new_state

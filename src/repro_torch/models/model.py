@@ -5,10 +5,15 @@ A port of the reference package's ``models/model.py``.  ``Model`` is an
 ``nn.Module`` holding ``embed`` (text models), ``final_ln``, ``lm_head`` and
 a ``ModuleList`` of ``Block``s; its ``state_dict`` keys mirror the
 reference's parameter tree (``layers.3.mixer.attn.wq`` is
-``params["layers"]["mixer"]["attn"]["wq"][3]`` there).  Sharding
-constraints are dropped: they do not change the numbers.  With
+``params["layers"]["mixer"]["attn"]["wq"][3]`` there).  With
 ``cfg.remat`` and grad enabled, each block runs under
 ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``.
+
+Sharding: ``param_specs`` and ``decode_state_specs`` are the reference's
+logical-axis trees, ``shard_params`` places a model's parameters on a mesh
+as DTensors, and the forward passes carry the reference's ``constrain``
+calls.  They run under ``sharding.replicate_plain``: the plain tensors they
+make (positions, masks) enter DTensor ops as replicated.
 
 Modality handling: ``text`` models embed integer tokens; ``vlm``/``audio``
 backbones take precomputed (B, S, d_model) embeddings.
@@ -18,12 +23,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
 from .layers import (IMPLS, MLP, Attention, HymbaMixer, Mamba, MoE,
                      empty_param, param_dtype, rmsnorm)
+from .sharding import attach, constrain, replicate_plain, use_mesh
 
 
 class Block(nn.Module):
@@ -50,6 +58,27 @@ class Block(nn.Module):
         else:
             raise ValueError(cfg.family)
 
+    @staticmethod
+    def specs(cfg: ArchConfig) -> dict:
+        """Logical axes of one block's parameters, nested as its modules."""
+        specs = {"ln1": ("embed",)}
+        if cfg.family in ("dense", "moe"):
+            specs["attn"] = Attention.specs(cfg)
+            specs["ln2"] = ("embed",)
+            if cfg.is_moe:
+                specs["moe"] = MoE.specs(cfg)
+            else:
+                specs["mlp"] = MLP.specs(cfg)
+        elif cfg.family == "ssm":
+            specs["mamba"] = Mamba.specs(cfg)
+        elif cfg.family == "hybrid":
+            specs["mixer"] = HymbaMixer.specs(cfg)
+            specs["ln2"] = ("embed",)
+            specs["mlp"] = MLP.specs(cfg)
+        else:
+            raise ValueError(cfg.family)
+        return specs
+
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(x, self.ln2)
         return self.moe(h) if self.cfg.is_moe else self.mlp(h)
@@ -72,7 +101,7 @@ class Block(nn.Module):
         x = x + self.mlp(rmsnorm(x, self.ln2))
         return x, (kv, state)
 
-    def decode(self, x: torch.Tensor, kv, ssm, pos: int):
+    def decode(self, x: torch.Tensor, kv, ssm, pos: int, impl: str = "kernel"):
         cfg = self.cfg
         h = rmsnorm(x, self.ln1)
         if cfg.family in ("dense", "moe"):
@@ -80,10 +109,10 @@ class Block(nn.Module):
             x = x + ao
             x = x + self._ffn(x)
         elif cfg.family == "ssm":
-            mo, ssm = self.mamba.decode(h, ssm)
+            mo, ssm = self.mamba.decode(h, ssm, impl=impl)
             x = x + mo
         else:
-            mo, kv, ssm = self.mixer.decode(h, kv, ssm, pos)
+            mo, kv, ssm = self.mixer.decode(h, kv, ssm, pos, impl=impl)
             x = x + mo
             x = x + self.mlp(rmsnorm(x, self.ln2))
         return x, kv, ssm
@@ -103,6 +132,45 @@ class Model(nn.Module):
         self.lm_head = empty_param((d, v), dt, device)
         self.layers = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """Logical-axis names of every parameter, keyed by ``state_dict`` name
+    (no materialization).  The port keeps its layers in an
+    ``nn.ModuleList``, so a layer's parameters are ``layers.<i>.<path>``
+    with the names of one layer: there is no leading ``"layers"`` axis,
+    which the reference's stacked tree (``scan_layers``) has as ``None``."""
+    specs = {}
+    if cfg.modality == "text":
+        specs["embed"] = ("vocab", "fsdp")
+    specs["final_ln"] = ("embed",)
+    specs["lm_head"] = ("fsdp", "vocab")
+    layer = _flat(Block.specs(cfg))
+    for i in range(cfg.n_layers):
+        specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return specs
+
+
+def shard_params(model: Model, mesh: DeviceMesh, rules=None) -> Model:
+    """Swaps each parameter of ``model`` for a DTensor on ``mesh`` under
+    ``divisible_spec`` of its ``param_specs`` names (rank 0's values
+    distributed; a ``meta`` model stays on meta).  In place; returns the
+    model."""
+    with use_mesh(mesh, rules):
+        return attach(model, param_specs(model.cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +231,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     by fan-in, norms at 1, the Mamba ``dt_bias``/``a_log``/``d_skip``
     constants.  The reference draws from jax.random keys, so the numbers
     differ; tests carry the reference's weights over with
-    ``weights.params_from_jax``."""
+    ``weights.params_from_jax``.  On the ``meta`` device there is nothing
+    to draw: the model comes back with shapes and dtypes only."""
     model = Model(cfg, device)
+    if torch.device(device or "cpu").type == "meta":
+        return model
     d = cfg.d_model
     if cfg.modality == "text":
         z = torch.empty(model.embed.shape, dtype=torch.float32, device=device)
@@ -201,10 +272,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 def embed_tokens(cfg: ArchConfig, params: Model, tokens: torch.Tensor):
     if cfg.modality == "text":
-        x = params.embed[tokens]
+        # the table gathered whole first (ZeRO-3: its fsdp and vocab
+        # shards), then a data-parallel lookup
+        x = F.embedding(tokens, constrain(params.embed, None, None))
     else:
         x = tokens   # precomputed frontend embeddings (B, S, d)
-    return x.to(param_dtype(cfg))
+    return constrain(x.to(param_dtype(cfg)), "batch", "res_seq", "embed")
 
 
 def forward(cfg: ArchConfig, params: Model, tokens: torch.Tensor,
@@ -224,6 +297,11 @@ def forward(cfg: ArchConfig, params: Model, tokens: torch.Tensor,
     is None when the family has no such cache."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    with replicate_plain():
+        return _forward(cfg, params, tokens, pos0, return_caches, impl)
+
+
+def _forward(cfg, params, tokens, pos0, return_caches, impl):
     x = embed_tokens(cfg, params, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     caches = []
@@ -235,7 +313,7 @@ def forward(cfg: ArchConfig, params: Model, tokens: torch.Tensor,
         if return_caches:
             caches.append(cache)
     x = rmsnorm(x, params.final_ln)
-    logits = x @ params.lm_head
+    logits = constrain(x @ params.lm_head, "batch", "seq", "vocab")
     if not return_caches:
         return logits
     kv = ssm = None
@@ -278,20 +356,34 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     return DecodeState(kv_k, kv_v, ssm_h, ssm_conv, 0)
 
 
+def decode_state_specs(cfg: ArchConfig) -> DecodeState:
+    """Logical-axis tuples for ``DecodeState``.  Its caches are stacked on
+    a leading layer axis, as the reference's are (``None``)."""
+    kv = (None, "batch", "kv_heads", "kv_seq", None) if cfg.has_attention else None
+    return DecodeState(
+        kv_k=kv, kv_v=kv,
+        ssm_h=(None, "batch", "ff", "state") if cfg.has_ssm else None,
+        ssm_conv=(None, "batch", None, "ff") if cfg.has_ssm else None,
+        pos=(),
+    )
+
+
 def decode_step(cfg: ArchConfig, params: Model, token: torch.Tensor,
-                state: DecodeState):
+                state: DecodeState, impl: str = "kernel"):
     """token: int (B,1) text / float (B,1,d) otherwise.  Returns (logits
     (B,1,V), new state).  The caches are updated in place: the returned
-    state holds the same tensors as ``state``, with ``pos`` advanced."""
-    x = embed_tokens(cfg, params, token)
-    pos = state.pos
-    for i, blk in enumerate(params.layers):
-        kv = (state.kv_k[i], state.kv_v[i]) if cfg.has_attention else None
-        ssm = (state.ssm_h[i], state.ssm_conv[i]) if cfg.has_ssm else None
-        x, _, new_ssm = blk.decode(x, kv, ssm, pos)
-        if cfg.has_ssm:
-            state.ssm_h[i].copy_(new_ssm[0])
-            state.ssm_conv[i].copy_(new_ssm[1])
-    x = rmsnorm(x, params.final_ln)
-    logits = x @ params.lm_head
+    state holds the same tensors as ``state``, with ``pos`` advanced.
+    ``impl`` picks the scan's path, as in ``forward``."""
+    with replicate_plain():
+        x = embed_tokens(cfg, params, token)
+        pos = state.pos
+        for i, blk in enumerate(params.layers):
+            kv = (state.kv_k[i], state.kv_v[i]) if cfg.has_attention else None
+            ssm = (state.ssm_h[i], state.ssm_conv[i]) if cfg.has_ssm else None
+            x, _, new_ssm = blk.decode(x, kv, ssm, pos, impl=impl)
+            if cfg.has_ssm:
+                state.ssm_h[i].copy_(new_ssm[0])
+                state.ssm_conv[i].copy_(new_ssm[1])
+        x = rmsnorm(x, params.final_ln)
+        logits = constrain(x @ params.lm_head, "batch", "seq", "vocab")
     return logits, state._replace(pos=pos + 1)

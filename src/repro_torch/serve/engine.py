@@ -10,58 +10,54 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models.config import ArchConfig
-from ..models.model import (
-    DecodeState,
-    Model,
-    decode_step,
-    forward,
-    init_decode_state,
-)
+from ..models.layers import param_dtype
+from ..models.model import DecodeState, Model, decode_step, forward
 
 
-def make_prefill_step(cfg: ArchConfig, cache_len: int):
+def make_prefill_step(cfg: ArchConfig, cache_len: int, impl: str = "kernel"):
     """Returns prefill(params, tokens) -> (last_logits (B,V), DecodeState).
 
     Builds caches sized ``cache_len`` with the prompt written at the front
-    or, for ring-buffer sliding-window caches, the last W positions in
-    slots 0..W-1 in order.  Decode assumes position p sits in slot p mod W,
-    so the two agree only when the prompt length S <= W or S is a multiple
-    of W; the reference behaves the same way and the port keeps it."""
+    (zeros after it) or, for ring-buffer sliding-window caches, the last W
+    positions in slots 0..W-1 in order.  Decode assumes position p sits in
+    slot p mod W, so the two agree only when the prompt length S <= W or S
+    is a multiple of W; the reference behaves the same way and the port
+    keeps it.  ``impl`` as in ``models.model.forward``."""
+    dt = param_dtype(cfg)
+    t_cache = (cache_len if cfg.sliding_window is None
+               else min(cache_len, cfg.sliding_window))
+
+    def cache(new: torch.Tensor, s: int) -> torch.Tensor:
+        if t_cache >= s:           # (L, B, Hkv, S, hd) padded to t_cache
+            return F.pad(new.to(dt), (0, 0, 0, t_cache - s))
+        # ring buffer: keep the last t_cache positions
+        return new[:, :, :, s - t_cache:].to(dt).contiguous()
 
     @torch.inference_mode()
     def prefill(params: Model, tokens: torch.Tensor):
-        b, s = tokens.shape[0], tokens.shape[1]
-        logits, (kv, ssm) = forward(cfg, params, tokens, return_caches=True)
-        device = logits.device
-        state = init_decode_state(cfg, b, cache_len, device=device)
-        kv_k, kv_v, ssm_h, ssm_conv = (state.kv_k, state.kv_v,
-                                       state.ssm_h, state.ssm_conv)
+        s = tokens.shape[1]
+        logits, (kv, ssm) = forward(cfg, params, tokens, return_caches=True,
+                                    impl=impl)
+        kv_k = kv_v = ssm_h = ssm_conv = None
         if cfg.has_attention:
-            k_new, v_new = kv                    # (L, B, Hkv, S, hd)
-            t_cache = kv_k.shape[3]
-            if t_cache >= s:
-                kv_k[:, :, :, :s] = k_new
-                kv_v[:, :, :, :s] = v_new
-            else:   # ring buffer: keep the last t_cache positions
-                kv_k = k_new[:, :, :, s - t_cache:].to(kv_k.dtype).contiguous()
-                kv_v = v_new[:, :, :, s - t_cache:].to(kv_v.dtype).contiguous()
+            kv_k, kv_v = cache(kv[0], s), cache(kv[1], s)
         if cfg.has_ssm:
-            h_t, conv_t = ssm
-            ssm_h = h_t.to(ssm_h.dtype)
-            ssm_conv = conv_t.to(ssm_conv.dtype)
+            ssm_h = ssm[0].to(torch.float32)
+            ssm_conv = ssm[1].to(dt)
         return logits[:, -1, :], DecodeState(kv_k, kv_v, ssm_h, ssm_conv, s)
 
     return prefill
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, impl: str = "kernel"):
     """One decode step: (params, token, state) -> (logits (B,1,V), state)."""
 
     @torch.inference_mode()
     def serve_step(params: Model, token: torch.Tensor, state: DecodeState):
-        return decode_step(cfg, params, token, state)
+        return decode_step(cfg, params, token, state, impl=impl)
 
     return serve_step
 

@@ -16,6 +16,7 @@ from .train_step import (
     make_eval_step,
     make_loss_fn,
     make_train_step,
+    train_state_specs,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -11,8 +11,11 @@ clipping see the leaf the reference sees.
 Arithmetic is float32 throughout, as in the reference: the step count and
 the schedule are float32 tensors (``torch.pow(b1, t)`` on a float32 ``t``),
 never Python doubles.  Updates write the parameters and the moments in
-place and return them.  The ``*_specs`` functions belong to the sharding
-slice and are not here.
+place and return them.
+
+Optimizer states inherit the parameter shardings (ZeRO-3 style): the
+``*_specs`` functions derive the state's logical-axis tree from the
+parameters', and the updates run unchanged on DTensor leaves.
 """
 from __future__ import annotations
 
@@ -112,6 +115,11 @@ def adamw_update(params: Params, grads: Params, state: AdamWState, *,
     return params, AdamWState(step, state.m, state.v)
 
 
+def adamw_specs(param_specs: Dict[str, tuple]) -> AdamWState:
+    """State spec tree matching adamw_init structure."""
+    return AdamWState(step=(), m=param_specs, v=param_specs)
+
+
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment, no first moment)
 # ---------------------------------------------------------------------------
@@ -168,15 +176,32 @@ def adafactor_update(params: Params, grads: Params, state: AdafactorState, *,
     return params, AdafactorState(step, state.row, state.col)
 
 
+def adafactor_specs(param_specs: Dict[str, tuple],
+                    param_shapes: Dict[str, Tuple[int, ...]]) -> AdafactorState:
+    """Spec tree: row drops the last logical axis, col drops the
+    second-last (the factored moments take the parameter's axes)."""
+    row, col = {}, {}
+    for k, names in param_specs.items():
+        if _factored(param_shapes[k]):
+            row[k] = tuple(names[:-1])
+            col[k] = tuple(names[:-2]) + (names[-1],)
+        else:
+            row[k] = tuple(names)
+            col[k] = (None,)
+    return AdafactorState(step=(), row=row, col=col)
+
+
 # ---------------------------------------------------------------------------
 # uniform front-end
 # ---------------------------------------------------------------------------
 def make_optimizer(name: str, **defaults):
-    """Returns (init_fn, update_fn)."""
+    """Returns (init_fn, update_fn, specs_fn(param_specs, param_shapes))."""
     if name == "adamw":
-        return adamw_init, functools.partial(adamw_update, **defaults)
+        return (adamw_init, functools.partial(adamw_update, **defaults),
+                lambda specs, shapes: adamw_specs(specs))
     if name == "adafactor":
-        return adafactor_init, functools.partial(adafactor_update, **defaults)
+        return (adafactor_init, functools.partial(adafactor_update, **defaults),
+                adafactor_specs)
     raise ValueError(name)
 
 

@@ -11,6 +11,15 @@ may take them (``impl="kernel"``), since it runs without grad.
 The reference's step is a pure function of the state; here it updates the
 model's parameters and the optimizer's moments in place and returns a new
 ``TrainState`` holding the same tensors.
+
+Sharded training: place a state on a mesh with
+``sharding.attach(state, train_state_specs(cfg))`` under ``use_mesh`` and
+give the step a batch of DTensors split along the batch (``"batch"``).
+Every gradient is pinned to its parameter's placements as it comes out of
+autograd, so a data-parallel gradient is all-reduced (replicated
+parameters) or reduce-scattered (ZeRO-3 ``fsdp`` shards) before the
+optimizer sees it, and a microbatch's gradients reduce into the
+accumulator's shards.
 """
 from __future__ import annotations
 
@@ -18,11 +27,13 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.config import ArchConfig
-from ..models.model import Model, forward, init_params
+from ..models.model import Model, forward, init_params, param_specs
+from ..models.sharding import constrain, replicate_plain, reshape
 from ..models.weights import param_leaves
-from .optimizer import lr_schedule, make_optimizer
+from .optimizer import _leaf_shape, lr_schedule, make_optimizer
 
 F32 = torch.float32
 
@@ -39,7 +50,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE in fp32. logits (B,S,V), labels (B,S) int."""
     logits = logits.to(F32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # a vocab-sharded gather leaves a masked partial sum: reduce it before
+    # dropping the gathered dim
+    gold = constrain(torch.gather(logits, -1, labels[..., None].long()),
+                     "batch", "seq", None)[..., 0]
     nll = logz - gold
     if mask is not None:
         nll = nll * mask
@@ -81,16 +95,55 @@ def init_train_state(cfg: ArchConfig, generator: torch.Generator,
     for p in params.parameters():
         if p.is_floating_point():
             p.requires_grad_(True)
-    opt_init, _ = make_optimizer(cfg.optimizer)
+    opt_init = make_optimizer(cfg.optimizer)[0]
     return TrainState(params=params,
                       opt=opt_init(param_leaves(cfg, params), **_opt_kwargs(cfg)),
                       step=0, rng=generator)
 
 
+def leaf_specs(cfg: ArchConfig) -> Dict[str, tuple]:
+    """Logical axes of the optimizer's leaves (``param_leaves``' names):
+    with ``scan_layers`` a stacked leaf leads with the layer axis
+    (``None``), as the reference's stacked parameter tree does."""
+    specs = param_specs(cfg)
+    if not cfg.scan_layers:
+        return specs
+    out = {}
+    for k, names in specs.items():
+        if k.startswith("layers."):
+            out.setdefault("layers." + k.split(".", 2)[2], (None,) + names)
+        else:
+            out[k] = names
+    return out
+
+
+def train_state_specs(cfg: ArchConfig) -> TrainState:
+    """Logical-axis tree for TrainState: the parameters' (keyed by
+    ``state_dict`` name, see ``models.model.param_specs``), the optimizer
+    state's (keyed by optimizer leaf), and () for the step and the
+    generator (replicated)."""
+    specs = leaf_specs(cfg)
+    meta = param_leaves(cfg, Model(cfg, device="meta"))
+    shapes = {k: _leaf_shape(v) for k, v in meta.items()}
+    opt_specs = make_optimizer(cfg.optimizer)[2]
+    return TrainState(params=param_specs(cfg), opt=opt_specs(specs, shapes),
+                      step=(), rng=())
+
+
+def _pin(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient on its parameter's placements (a no-op unsharded)."""
+    if isinstance(p, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _value_and_grad(loss_fn, model: Model, batch, flat):
-    loss = loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
+    # the recomputation under remat runs inside autograd.grad: plain
+    # tensors it makes enter DTensor ops there too
+    with replicate_plain():
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else _pin(g, p)
                            for p, g in zip(flat, grads)]
 
 
@@ -112,7 +165,7 @@ def make_train_step(cfg: ArchConfig, *, impl: str = "xla",
     in ``cfg.accum_dtype``.  Metrics are f32 scalar tensors: ``loss``,
     ``lr`` and ``grad_norm``."""
     loss_fn = make_loss_fn(cfg, impl)
-    _, opt_update = make_optimizer(cfg.optimizer)
+    opt_update = make_optimizer(cfg.optimizer)[1]
     accum = grad_accum or cfg.grad_accum
     lr_kw = lr_kwargs or {}
 
@@ -124,10 +177,11 @@ def make_train_step(cfg: ArchConfig, *, impl: str = "xla",
         else:
             acc_dt = getattr(torch, cfg.accum_dtype)
             loss_sum = 0.0
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                     for p in flat]
+            # on the parameters' placements: microbatch grads reduce-scatter
+            # into ZeRO-3 shards instead of all-reducing whole tensors
+            grads = [torch.zeros_like(p, dtype=acc_dt) for p in flat]
             for i in range(accum):
-                mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+                mb = {k: reshape(v, accum, v.shape[0] // accum, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 l, g = _value_and_grad(loss_fn, model, mb, flat)
                 grads = [a + gi.to(acc_dt) for a, gi in zip(grads, g)]

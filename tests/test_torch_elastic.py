@@ -2,10 +2,13 @@
 reference's ``tests/runtime/test_{checkpoint,compression_straggler,
 placement}.py`` one for one, and the port's ``ClusterScheduler``,
 ``simulate_worker_availability`` (``device="cpu"``: the HLEM kernel's plain
-PyTorch version) and ``ElasticTrainer`` at width 1 against the reference's
-on the same inputs."""
+PyTorch version) and ``ElasticTrainer`` against the reference's on the same
+inputs: at width 1 in this process, and rescaling 8 -> 4 -> 8 on 8 gloo
+ranks (``launch.mesh.spawn``)."""
+import dataclasses
 import json
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +40,18 @@ from repro_torch.elastic import (
     simulate_worker_availability,
 )
 from repro_torch.elastic.checkpoint import _flatten
-from repro_torch.elastic.elastic import require_one_device
+from repro_torch.launch.mesh import destroy_group, spawn
 from repro_torch.models.weights import train_state_from_jax
 from repro_torch.train import DataConfig, init_train_state
+from torch.distributed.device_mesh import DeviceMesh
+
+
+@pytest.fixture(autouse=True)
+def _end_process_group():
+    """A trainer alone in this process starts a one-rank process group:
+    end it, so that no later test finds one."""
+    yield
+    destroy_group()
 
 
 def _leaves_equal(a, b):
@@ -329,14 +341,14 @@ def test_worker_availability_defaults_to_cuda():
 # the elastic trainer at width 1
 # ---------------------------------------------------------------------------
 def test_build_mesh_counts_devices():
+    """A process alone is a one-rank group: a (1, 1) mesh over rank 0, and
+    a wider one raises."""
     mesh = build_mesh(1, device="cpu")
-    assert mesh.shape == (1, 1) and require_one_device(mesh) == torch.device("cpu")
+    assert isinstance(mesh, DeviceMesh) and mesh.device_type == "cpu"
+    assert mesh.shape == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+    assert mesh.mesh.tolist() == [[0]] and tuple(mesh.get_coordinate()) == (0, 0)
     with pytest.raises(ValueError, match="need 2 devices"):
         build_mesh(2, device="cpu")
-    wide = np.empty(2, dtype=object)
-    wide[:] = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        require_one_device(wide.reshape(2, 1))
 
 
 def test_elastic_trainer_matches_reference(tmp_path, monkeypatch):
@@ -391,3 +403,53 @@ def test_elastic_trainer_wider_than_the_process_raises(tmp_path):
                         str(tmp_path), max_workers=2, device="cpu")
     with pytest.raises(ValueError, match="need 2 devices"):
         tr.configure(2)
+
+
+def _elastic_rank(rank, world, jstate_path, ckpt_dir, out_path):
+    """One of 8 ranks of ``test_elastic_trainer_rescales``."""
+    with open(jstate_path, "rb") as f:
+        jstate = pickle.load(f)
+    telastic_mod.init_train_state = (
+        lambda cfg, gen, device=None: train_state_from_jax(cfg, jstate, device))
+    cfg = tcfg.get_smoke_config("deepseek_7b")
+    tr = ElasticTrainer(cfg, DataConfig(batch=8, seq_len=16, seed=0),
+                        ckpt_dir, max_workers=8, device="cpu")
+    rep = tr.train_elastic(total_steps=30, events=RESCALE_EVENTS)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(dataclasses.asdict(rep), f)
+
+
+RESCALE_EVENTS = [AvailabilityEvent(10.0, 4, "interrupt"),
+                  AvailabilityEvent(20.0, 8, "resume")]
+
+
+def test_elastic_trainer_rescales(tmp_path):
+    """The reference's ``tests/test_system.py::test_elastic_trainer_rescales``
+    on 8 gloo ranks: interrupted to 4 at t=10, resumed to 8 at t=20, 30
+    steps.  The global batch is invariant, so the losses follow the
+    reference trainer's width-1 trajectory from the same initial state."""
+    arch = "deepseek_7b"
+    rc = rcfg.get_smoke_config(arch)
+    jstate = jax.tree.map(np.asarray, rinit(rc, jax.random.PRNGKey(0)))
+    with open(tmp_path / "init.pkl", "wb") as f:
+        pickle.dump(jstate, f)
+    spawn(_elastic_rank, 8, "gloo", timeout=240,
+          args=(str(tmp_path / "init.pkl"), str(tmp_path / "ck"),
+                str(tmp_path / "report.json")))
+    with open(tmp_path / "report.json") as f:
+        got = json.load(f)
+    assert got["steps_run"] == 30, got["steps_run"]
+    assert got["emergency_saves"] >= 1
+    widths = [w for _, w in got["mesh_history"]]
+    assert 4 in widths and 8 in widths
+    assert got["mesh_history"] == [[0, 8], [10, 4], [20, 8]]
+
+    kw = dict(batch=8, seq_len=16, seed=0)
+    want = relastic.ElasticTrainer(
+        rc, RDataConfig(**kw), str(tmp_path / "r"), max_workers=1,
+        seed=0).train_elastic(30, [relastic.AvailabilityEvent(**vars(e))
+                                   for e in RESCALE_EVENTS])
+    assert len(got["losses"]) == 30
+    np.testing.assert_allclose(got["losses"], want.losses, rtol=1e-4)
+

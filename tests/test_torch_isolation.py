@@ -46,6 +46,10 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.elastic.compression, repro_torch.elastic.straggler\n"
         "import repro_torch.elastic.placement, repro_torch.elastic.elastic\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.hlo_analyzer, repro_torch.launch.hlo_stats\n"
+        "import repro_torch.launch.reanalyze\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

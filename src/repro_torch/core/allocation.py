@@ -219,11 +219,12 @@ class HlemVmp(AllocationPolicy):
     on-demand VMs, the spot-clearing candidate list is used — Algorithm 1).
     Phases 2–3 score candidates with entropy weights and pick the max.
 
-    ``backend="torch"`` (the default) scores the full fleet in float32 on
+    ``backend="torch"`` (the default) scores the full fleet in float64 on
     ``device`` (default ``"cuda"``: the hand-written kernel; ``"cpu"``: its
     plain PyTorch version); ``backend="numpy"`` runs the float64 oracle on
-    the compressed candidate set.  A CUDA device without a card raises here,
-    when the policy is built.
+    the compressed candidate set.  Both compute the float64 math of the
+    reference's default (numpy) scorer.  A CUDA device without a card
+    raises here, when the policy is built.
     """
 
     name = "hlem-vmp"
@@ -259,7 +260,7 @@ class HlemVmp(AllocationPolicy):
         spot_frac = pool.spot_frac_view()
         alpha = self._alpha_for(vm)
         if self.backend == "torch":
-            return hlem_select_torch(free, mask, spot_frac, np.float32(alpha),
+            return hlem_select_torch(free, mask, spot_frac, alpha,
                                      self.device)
         return hlem_pick_np(free, mask, spot_frac, alpha)
 

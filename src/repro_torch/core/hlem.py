@@ -4,9 +4,11 @@ Two implementations of the same math:
 
 * ``hlem_scores_np``    — pure-numpy float64 oracle (readable, used as test
   reference, and the numpy backend's hot path),
-* ``hlem_scores_torch`` — float32 on a torch device through
+* ``hlem_scores_torch`` — the same float64 math on a torch device through
   ``repro_torch.kernels.ops``: the hand-written CUDA kernel on the GPU, its
-  plain PyTorch version on the CPU.
+  plain PyTorch version on the CPU.  It scores the full fleet (masked)
+  where the oracle scores the compressed candidate rows; both pick the
+  lowest index among equal scores.
 
 All take a *masked* formulation: every host is scored, infeasible hosts carry
 ``mask=False`` and receive ``-inf`` (``-3.4e38`` on the torch path) so
@@ -282,7 +284,7 @@ def hlem_scores_batch_np(
 
 
 # ---------------------------------------------------------------------------
-# torch (float32 on a device, mask-based, through kernels.ops)
+# torch (float64 on a device, mask-based, through kernels.ops)
 # ---------------------------------------------------------------------------
 def _align16(nbytes: int) -> int:
     return (nbytes + 15) & ~15
@@ -292,11 +294,11 @@ class _DeviceWorkspace:
     """Pinned host staging and device buffers for the torch scorers.
 
     The policy layer's host state is numpy float64; each scoring call
-    converts it to float32 into one pinned buffer and moves it to the device
-    in ONE host-to-device copy.  Layout (byte offsets, 16-aligned for the
-    kernel's float4 loads): free (n, D) f32 | spot_frac (n, D) f32 |
-    alphas (B,) f32 | masks (B, n) u8.  Buffers grow with the fleet and the
-    batch and are never shrunk, so the hot path allocates nothing."""
+    copies it into one pinned buffer and moves it to the device in ONE
+    host-to-device copy.  Layout (byte offsets, 16-aligned for the kernel's
+    16-byte copies): free (n, D) f64 | spot_frac (n, D) f64 | alphas (B,)
+    f64 | masks (B, n) u8.  Buffers grow with the fleet and the batch and
+    are never shrunk, so the hot path allocates nothing."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -318,32 +320,31 @@ class _DeviceWorkspace:
     def stage(self, free, masks, spot_frac, alphas):
         n, d = free.shape
         b = masks.shape[0]
-        o_spot = _align16(n * d * 4)
-        o_alpha = o_spot + _align16(n * d * 4)
-        o_mask = o_alpha + _align16(b * 4)
+        nf = n * d * 8
+        o_spot = _align16(nf)
+        o_alpha = o_spot + _align16(nf)
+        o_mask = o_alpha + _align16(b * 8)
         total = self.nbytes = o_mask + b * n
         self._ensure(total)
         if self.copied is not None:
             # the previous call's copy may still read the pinned buffer
             self.copied.synchronize()
         h = self.host_np
-        np.copyto(h[:n * d * 4].view(np.float32).reshape(n, d), free,
-                  casting="same_kind")
-        np.copyto(h[o_spot:o_spot + n * d * 4].view(np.float32).reshape(n, d),
-                  spot_frac, casting="same_kind")
+        np.copyto(h[:nf].view(np.float64).reshape(n, d), free)
+        np.copyto(h[o_spot:o_spot + nf].view(np.float64).reshape(n, d),
+                  spot_frac)
         if alphas is not None:
-            np.copyto(h[o_alpha:o_alpha + b * 4].view(np.float32), alphas,
-                      casting="same_kind")
+            np.copyto(h[o_alpha:o_alpha + b * 8].view(np.float64), alphas)
         np.copyto(h[o_mask:total].reshape(b, n), masks)
         self.dev[:total].copy_(self.host[:total], non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record(torch.cuda.current_stream(self.device))
         v = self.dev
-        return (v[:n * d * 4].view(torch.float32).view(n, d),
+        return (v[:nf].view(torch.float64).view(n, d),
                 v[o_mask:total].view(b, n),
-                v[o_spot:o_spot + n * d * 4].view(torch.float32).view(n, d),
+                v[o_spot:o_spot + nf].view(torch.float64).view(n, d),
                 None if alphas is None
-                else v[o_alpha:o_alpha + b * 4].view(torch.float32))
+                else v[o_alpha:o_alpha + b * 8].view(torch.float64))
 
 
 _DEVICE_WS: Dict[torch.device, _DeviceWorkspace] = {}
@@ -365,19 +366,19 @@ def resolve_device(device) -> torch.device:
 
 
 def stage_to_device(device, free, masks, spot_frac, alphas=None):
-    """Host state (numpy) -> float32 ``free`` (n, D), (B, n) ``masks``,
-    float32 ``spot_frac`` (n, D) and, if given, (B,) ``alphas`` on
+    """Host state (numpy) -> float64 ``free`` (n, D), (B, n) ``masks``,
+    float64 ``spot_frac`` (n, D) and, if given, float64 (B,) ``alphas`` on
     ``device``.
 
     On a CUDA device the returned tensors are views of a reused workspace:
     valid until the next call, so consume (or clone) them first."""
     device = resolve_device(device)
     if device.type == "cpu":
-        return (torch.from_numpy(np.asarray(free, dtype=np.float32)),
+        return (torch.from_numpy(np.asarray(free, dtype=np.float64)),
                 torch.from_numpy(np.asarray(masks, dtype=bool)),
-                torch.from_numpy(np.asarray(spot_frac, dtype=np.float32)),
+                torch.from_numpy(np.asarray(spot_frac, dtype=np.float64)),
                 None if alphas is None
-                else torch.from_numpy(np.asarray(alphas, dtype=np.float32)))
+                else torch.from_numpy(np.asarray(alphas, dtype=np.float64)))
     ws = _DEVICE_WS.get(device)
     if ws is None:
         ws = _DEVICE_WS[device] = _DeviceWorkspace(device)
@@ -390,8 +391,8 @@ def hlem_scores_torch(
     spot_frac: np.ndarray,     # (n, D)
     alpha: float,
     device="cuda",
-) -> torch.Tensor:             # (n,) float32 on ``device``
-    """The math of ``hlem_scores_np`` in float32 on ``device``; -3.4e38
+) -> torch.Tensor:             # (n,) float64 on ``device``
+    """The math of ``hlem_scores_np`` in float64 on ``device``; -3.4e38
     where the mask is False."""
     free_d, masks_d, spot_d, _ = stage_to_device(
         device, free, np.asarray(mask, dtype=bool)[None], spot_frac)
@@ -418,7 +419,7 @@ def hlem_scores_batch_torch(
     device="cuda",
 ) -> torch.Tensor:           # (B, n) scores, -3.4e38 outside each row's mask
     masks = np.asarray(masks, dtype=bool)
-    alphas = np.full(masks.shape[0], alphas, dtype=np.float32)
+    alphas = np.full(masks.shape[0], alphas, dtype=np.float64)
     free_d, masks_d, spot_d, alphas_d = stage_to_device(
         device, free, masks, spot_frac, alphas)
     return ops.hlem_score_batch(free_d, masks_d, spot_d, alphas_d)

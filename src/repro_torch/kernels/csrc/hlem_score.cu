@@ -1,17 +1,22 @@
-// HLEM-VMP host scoring (paper Eqs. 3-11) for Hopper (sm_90a).
+// HLEM-VMP host scoring (paper Eqs. 3-11) for Hopper (sm_90a), in float64.
 //
 // Replaces the Pallas TPU kernel in src/repro/kernels/hlem_score.py: both
 // entries, hlem_score_pallas (one VM) and hlem_score_pallas_batch (B VMs
 // against shared host state), share its body `_kernel`, so here they share
-// one kernel with a batch dimension; the single-VM entry is B = 1.
+// one kernel with a batch dimension; the single-VM entry is B = 1.  The
+// arithmetic is float64, as the reference's default scorer (the numpy
+// oracle, repro.core.hlem.hlem_pick_candidates_np) computes it: float32
+// cannot tell apart two hosts whose scores differ by less than ~6e-8
+// relative, and its ties then pick another host than the oracle does.
 //
 // What bounds it on this card: latency, not bytes or arithmetic.  Each batch
-// row reads every host's free capacity and spot fraction (2 x D x 4 B) and
-// its mask byte once and writes one float: about 37 B per host at D = 4, so
-// ~0.47 MB at n = 12,583 hosts, well under 1 us of HBM time.  The four
-// stages depend on each other through three reductions over all n hosts,
-// so what a call costs is the launch, the round trips to device memory and
-// the reductions' barriers.  The design:
+// row reads every host's free capacity and spot fraction (2 x D x 8 B) and
+// its mask byte once and writes one double: about 73 B per host at D = 4, so
+// ~0.92 MB at n = 12,583 hosts, well under 1 us of HBM time, and ~120 FP64
+// operations a host, further under the card's FP64 rate.  The four stages
+// depend on each other through three reductions over all n hosts, so what a
+// call costs is the launch, the round trips to device memory and the
+// reductions' barriers.  The design:
 //
 // * One thread-block cluster of C CTAs per batch row, on neighbouring SMs
 //   (cudaLaunchKernelEx with a cluster dimension).  C depends on n alone
@@ -24,7 +29,7 @@
 //   shared memory and the mask bytes batched through registers: every load
 //   is issued before any is waited on, and the four stages then read the
 //   slice from shared memory.  A slice too large for kResidentBytes (n above
-//   ~47,000 at D = 4) is read from device memory in each stage instead.
+//   ~24,000 at D = 4) is read from device memory in each stage instead.
 // * The three reductions (min/max/count, column sums, sum p ln p) are fixed
 //   order: warp shuffles, then warps in order, give each CTA's partials in
 //   its own shared memory; after a cluster barrier every CTA loads all C
@@ -32,15 +37,21 @@
 //   combines them in rank order 0..C-1, so every CTA holds the same bits
 //   without a broadcast.  No atomics: two launches on the same inputs give
 //   bit-equal scores (the simulator's contract is bit-identical replays).
-// * 128 threads a CTA keep registers and shared memory per CTA small
-//   enough for eight CTAs on an SM, so 64 rows of 16 CTAs fit the card in
-//   one wave.
+// * Each host's two dot products (Eqs. 9 and 10) are compensated, Ogita,
+//   Rump and Oishi's Dot2 over k = 0..D-1 as the plain version computes it:
+//   every product's rounding error (one fused multiply-add) and every sum's
+//   (two-sum) are carried and added once at the end, so each is its exact
+//   value rounded once, up to ~D^2 u^2.  Hosts whose scores are equal in
+//   exact arithmetic then score bit-equal whatever the order of their terms
+//   or where they sit, and the lowest index wins the tie, as the oracle's
+//   argmax does.  About 12 D more operations a host than a plain sum.
+// * 128 threads a CTA.  A slice of 787 hosts (n = 12,583, C = 16) takes
+//   ~50 KB of shared memory, so about four CTAs share an SM and B = 64 rows
+//   of 16 CTAs take two waves of the card.
 // * Every CTA derives the D entropy weights itself from those identical
 //   sums and writes the scores of its own slice.  A CTA arrives on the
 //   cluster barrier after its last remote read and waits on it before it
 //   exits, so no CTA's shared memory goes away while another reads it.
-// * B = 64 rows at n = 12,583 give 64 clusters of 16 CTAs, which fill the
-//   card; the 60-machine quick trace gives C = 1.
 //
 // Semantics kept from the TPU kernel: min/max start at +-3.4e38; a column
 // whose span is <= 1e-12 standardises to 1; p falls back to mask/m where a
@@ -66,8 +77,8 @@ constexpr int kHostsPerCta = 1024;     // the cluster rule's unit
 constexpr int kMaxCluster = 16;        // above 8: a non-portable cluster size
 constexpr int kMaskUnroll = 8;         // mask loads in flight per thread
 constexpr size_t kResidentBytes = 96 * 1024;
-constexpr float kEps = 1e-12f;
-constexpr float kBig = 3.4e38f;
+constexpr double kEps = 1e-12;
+constexpr double kBig = 3.4e38;
 
 // The cluster rule: the smallest power of two C with C * 1024 >= n, at most
 // 16.  n <= 1024 -> 1; <= 2048 -> 2; <= 4096 -> 4; <= 8192 -> 8; else 16.
@@ -79,26 +90,26 @@ int cluster_size(int n) {
 
 // Reduction operators, by the index k of the value they combine.
 struct Sum {
-  __device__ float operator()(int, float a, float b) const { return a + b; }
+  __device__ double operator()(int, double a, double b) const { return a + b; }
 };
 template <int D>   // [0, D) min of lo, [D, 2D) max of hi, 2D the count
 struct MinMaxCount {
-  __device__ float operator()(int k, float a, float b) const {
-    return k < D ? fminf(a, b) : k < 2 * D ? fmaxf(a, b) : a + b;
+  __device__ double operator()(int k, double a, double b) const {
+    return k < D ? fmin(a, b) : k < 2 * D ? fmax(a, b) : a + b;
   }
 };
 
 // Reduce K per-thread values over the block in a fixed order into
 // `result[0..K)` (shared memory); visible to every thread after the call.
 template <int K, typename Op>
-__device__ __forceinline__ void block_reduce(const float (&x)[K],
-                                             float (*scratch)[kMaxParts],
-                                             float* result, Op op) {
+__device__ __forceinline__ void block_reduce(const double (&x)[K],
+                                             double (*scratch)[kMaxParts],
+                                             double* result, Op op) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    float v = x[k];
+    double v = x[k];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v = op(k, v, __shfl_down_sync(0xffffffffu, v, off));
@@ -106,7 +117,7 @@ __device__ __forceinline__ void block_reduce(const float (&x)[K],
   }
   __syncthreads();
   if (threadIdx.x < K) {
-    float v = scratch[0][threadIdx.x];
+    double v = scratch[0][threadIdx.x];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) v = op(threadIdx.x, v, scratch[w][threadIdx.x]);
     result[threadIdx.x] = v;
@@ -119,15 +130,15 @@ __device__ __forceinline__ void block_reduce(const float (&x)[K],
 // issued before the first is used.  Call after a cluster barrier.
 template <int K, typename Op>
 __device__ __forceinline__ void cluster_combine(cg::cluster_group& cluster,
-                                                float* part, float* result,
+                                                double* part, double* result,
                                                 Op op) {
   if (threadIdx.x < K) {
     const int csize = static_cast<int>(cluster.num_blocks());
-    float v[kMaxCluster];
+    double v[kMaxCluster];
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
-      v[r] = r < csize ? *cluster.map_shared_rank(part + threadIdx.x, r) : 0.f;
-    float acc = v[0];
+      v[r] = r < csize ? *cluster.map_shared_rank(part + threadIdx.x, r) : 0.0;
+    double acc = v[0];
 #pragma unroll
     for (int r = 1; r < kMaxCluster; ++r)
       if (r < csize) acc = op(threadIdx.x, acc, v[r]);
@@ -136,6 +147,7 @@ __device__ __forceinline__ void cluster_combine(cg::cluster_group& cluster,
   __syncthreads();
 }
 
+// One asynchronous copy into shared memory: 16 B (two doubles) or 8 B.
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int bytes16) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -144,40 +156,62 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                  "l"(src)
                  : "memory");
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                  "l"(src)
                  : "memory");
 }
 
 template <int D, bool kResident>
-__device__ __forceinline__ void load_host(const float* __restrict__ base,
-                                          int i, float (&v)[D]) {
-  if constexpr (D == 4 && kResident) {   // 16-byte shared-memory loads
-    const float4 q = reinterpret_cast<const float4*>(base)[i];
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
+__device__ __forceinline__ void load_host(const double* __restrict__ base,
+                                          int i, double (&v)[D]) {
+  if constexpr (D % 2 == 0 && kResident) {   // 16-byte shared-memory loads
+    const double2* q = reinterpret_cast<const double2*>(base) + i * (D / 2);
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) {
+      const double2 h = q[k];
+      v[2 * k] = h.x;
+      v[2 * k + 1] = h.y;
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < D; ++k) v[k] = base[static_cast<size_t>(i) * D + k];
   }
 }
 
+// One term of Dot2: p += x * y, and the rounding errors of the product and
+// of the sum added to s.  Every operation is rounded on its own (the
+// intrinsics are never contracted), as the plain version's tensor ops are.
+__device__ __forceinline__ void dot2_step(double x, double y, double& p,
+                                          double& s) {
+  const double h = __dmul_rn(x, y);
+  const double r = __fma_rn(x, y, -h);
+  const double t = __dadd_rn(p, h);
+  const double z = __dsub_rn(t, p);
+  const double q = __dadd_rn(__dsub_rn(p, __dsub_rn(t, z)), __dsub_rn(h, z));
+  s = __dadd_rn(s, __dadd_rn(q, r));
+  p = t;
+}
+
+// Eq. 3 for one value: (f - lo) / span, or 1 on a degenerate column.
+__device__ __forceinline__ double standardise(double f, double lo, double span,
+                                              bool degen) {
+  return degen ? 1.0 : (f - lo) / span;
+}
+
 template <int D, bool kResident>
 __global__ void __launch_bounds__(kThreads)
-hlem_score_kernel(const float* __restrict__ free_cap,
+hlem_score_kernel(const double* __restrict__ free_cap,
                   const uint8_t* __restrict__ masks,
-                  const float* __restrict__ spot,
-                  const float* __restrict__ alphas, float alpha_all,
-                  float* __restrict__ out, int n, int slice) {
-  extern __shared__ float4 dyn[];   // the resident slice: free, spot, mask
-  __shared__ float scratch[kWarps][kMaxParts];
+                  const double* __restrict__ spot,
+                  const double* __restrict__ alphas, double alpha_all,
+                  double* __restrict__ out, int n, int slice) {
+  extern __shared__ double2 dyn[];   // the resident slice: free, spot, mask
+  __shared__ double scratch[kWarps][kMaxParts];
   // this CTA's partials, one array per reduction (read remotely)
-  __shared__ float p_1[kMaxParts], p_col[kMaxDims], p_plp[kMaxDims];
+  __shared__ double p_1[kMaxParts], p_col[kMaxDims], p_plp[kMaxDims];
   // the cluster's combined values: s_1 = lo[D], hi[D], count
-  __shared__ float s_1[kMaxParts], s_col[kMaxDims], s_plp[kMaxDims];
-  __shared__ float s_w[kMaxDims];
+  __shared__ double s_1[kMaxParts], s_col[kMaxDims], s_plp[kMaxDims];
+  __shared__ double s_w[kMaxDims];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
@@ -187,22 +221,22 @@ hlem_score_kernel(const float* __restrict__ free_cap,
   const int cnt = max(0, min(n, start + slice) - start);
 
   const uint8_t* __restrict__ mask_g = masks + static_cast<size_t>(row) * n + start;
-  const float* __restrict__ free_g = free_cap + static_cast<size_t>(start) * D;
-  const float* __restrict__ spot_g = spot + static_cast<size_t>(start) * D;
-  float* __restrict__ o = out + static_cast<size_t>(row) * n + start;
+  const double* __restrict__ free_g = free_cap + static_cast<size_t>(start) * D;
+  const double* __restrict__ spot_g = spot + static_cast<size_t>(start) * D;
+  double* __restrict__ o = out + static_cast<size_t>(row) * n + start;
 
-  float* s_free = reinterpret_cast<float*>(dyn);
-  float* s_spot = s_free + slice * D;
-  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_spot + slice * D);
+  double* s_free = reinterpret_cast<double*>(dyn);
+  double* s_spot = s_free + static_cast<size_t>(slice) * D;
+  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_spot + static_cast<size_t>(slice) * D);
   if constexpr (kResident) {
     // free and spot by asynchronous copies, 16 B each where both sides are
     // aligned; the mask bytes kMaskUnroll at a time through registers
     const int nf = cnt * D;
     const bool vec16 =
-        nf % 4 == 0 && (slice * D) % 4 == 0 &&
+        nf % 2 == 0 && (slice * D) % 2 == 0 &&
         ((reinterpret_cast<uintptr_t>(free_g) |
           reinterpret_cast<uintptr_t>(spot_g)) & 15) == 0;
-    const int step = vec16 ? 4 : 1;
+    const int step = vec16 ? 2 : 1;
     for (int i = threadIdx.x * step; i < nf; i += kThreads * step) {
       cp_async(s_free + i, free_g + i, vec16);
       cp_async(s_spot + i, spot_g + i, vec16);
@@ -224,34 +258,34 @@ hlem_score_kernel(const float* __restrict__ free_cap,
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
   }
-  const float* __restrict__ fsrc = kResident ? s_free : free_g;
-  const float* __restrict__ ssrc = kResident ? s_spot : spot_g;
+  const double* __restrict__ fsrc = kResident ? s_free : free_g;
+  const double* __restrict__ ssrc = kResident ? s_spot : spot_g;
   const uint8_t* __restrict__ msrc = kResident ? s_mask : mask_g;
-  float f[D];
+  double f[D];
 
   // stage 1 - masked per-dim min/max and candidate count (Eq. 3)
-  float v1[2 * D + 1];   // lo[D], hi[D], count
+  double v1[2 * D + 1];   // lo[D], hi[D], count
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     v1[k] = kBig;
     v1[D + k] = -kBig;
   }
-  v1[2 * D] = 0.f;
+  v1[2 * D] = 0.0;
   for (int i = threadIdx.x; i < cnt; i += kThreads) {
     if (!msrc[i]) continue;
     load_host<D, kResident>(fsrc, i, f);
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      v1[k] = fminf(v1[k], f[k]);
-      v1[D + k] = fmaxf(v1[D + k], f[k]);
+      v1[k] = fmin(v1[k], f[k]);
+      v1[D + k] = fmax(v1[D + k], f[k]);
     }
-    v1[2 * D] += 1.f;
+    v1[2 * D] += 1.0;
   }
   block_reduce<2 * D + 1>(v1, scratch, p_1, MinMaxCount<D>());
   cluster.sync();
   cluster_combine<2 * D + 1>(cluster, p_1, s_1, MinMaxCount<D>());
 
-  float lo[D], span[D];
+  double lo[D], span[D];
   bool degen[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) {
@@ -261,15 +295,15 @@ hlem_score_kernel(const float* __restrict__ free_cap,
   }
 
   // stage 2 - column sums of the standardised capacity (Eq. 4 denominator)
-  float col[D];
+  double col[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) col[k] = 0.f;
+  for (int k = 0; k < D; ++k) col[k] = 0.0;
   for (int i = threadIdx.x; i < cnt; i += kThreads) {
     if (!msrc[i]) continue;
     load_host<D, kResident>(fsrc, i, f);
 #pragma unroll
     for (int k = 0; k < D; ++k)
-      col[k] += degen[k] ? 1.f : (f[k] - lo[k]) / span[k];
+      col[k] += standardise(f[k], lo[k], span[k], degen[k]);
   }
   block_reduce<D>(col, scratch, p_col, Sum());
   cluster.sync();
@@ -277,20 +311,20 @@ hlem_score_kernel(const float* __restrict__ free_cap,
 #pragma unroll
   for (int k = 0; k < D; ++k) col[k] = s_col[k];
 
-  // stage 3 - sum of p ln p per dim (Eq. 5)
-  const float m = s_1[2 * D];
-  const float p_even = 1.f / fmaxf(m, 1.f);
-  float plp[D];
+  // stage 3 - sum of p ln p per dim (Eq. 5), the double-precision log
+  const double m = s_1[2 * D];
+  const double p_even = 1.0 / fmax(m, 1.0);
+  double plp[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) plp[k] = 0.f;
+  for (int k = 0; k < D; ++k) plp[k] = 0.0;
   for (int i = threadIdx.x; i < cnt; i += kThreads) {
     if (!msrc[i]) continue;
     load_host<D, kResident>(fsrc, i, f);
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const float c = degen[k] ? 1.f : (f[k] - lo[k]) / span[k];
-      const float p = col[k] > kEps ? c / col[k] : p_even;
-      plp[k] += p > kEps ? p * logf(fmaxf(p, kEps)) : 0.f;
+      const double c = standardise(f[k], lo[k], span[k], degen[k]);
+      const double p = col[k] > kEps ? c / col[k] : p_even;
+      plp[k] += p > kEps ? __dmul_rn(p, log(fmax(p, kEps))) : 0.0;
     }
   }
   block_reduce<D>(plp, scratch, p_plp, Sum());
@@ -301,25 +335,26 @@ hlem_score_kernel(const float* __restrict__ free_cap,
 
   // entropy weights (Eqs. 6-8), the same bits in every CTA of the cluster
   if (threadIdx.x == 0) {
-    const float kk = m > 1.f ? 1.f / logf(fmaxf(m, 2.f)) : 0.f;
-    float g[D], gsum = 0.f;
+    const double kk = m > 1.0 ? 1.0 / log(fmax(m, 2.0)) : 0.0;
+    double g[D], gsum = 0.0;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      g[k] = 1.f - (-kk * s_plp[k]);
+      g[k] = 1.0 - __dmul_rn(-kk, s_plp[k]);
       gsum += g[k];
     }
 #pragma unroll
     for (int k = 0; k < D; ++k)
-      s_w[k] = gsum > kEps ? g[k] / gsum : 1.f / D;
+      s_w[k] = gsum > kEps ? g[k] / gsum : 1.0 / D;
   }
   __syncthreads();
-  float w[D];
+  double w[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) w[k] = s_w[k];
 
-  // stage 4 - HS (Eq. 9), SL (Eq. 10), AHS = HS * (1 + alpha * SL) (Eq. 11)
-  const float alpha = alphas != nullptr ? alphas[row] : alpha_all;
-  float sf[D];
+  // stage 4 - HS (Eq. 9), SL (Eq. 10), AHS = HS * (1 + alpha * SL) (Eq. 11),
+  // HS and SL by Dot2 in the order k = 0..D-1
+  const double alpha = alphas != nullptr ? alphas[row] : alpha_all;
+  double sf[D];
   for (int i = threadIdx.x; i < cnt; i += kThreads) {
     if (!msrc[i]) {
       o[i] = -kBig;
@@ -327,25 +362,33 @@ hlem_score_kernel(const float* __restrict__ free_cap,
     }
     load_host<D, kResident>(fsrc, i, f);
     load_host<D, kResident>(ssrc, i, sf);
-    float hs = 0.f, sl = 0.f;
+    double hp = 0.0, he = 0.0, sp = 0.0, se = 0.0;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      hs += (degen[k] ? 1.f : (f[k] - lo[k]) / span[k]) * w[k];
-      sl += sf[k] * w[k];
+      dot2_step(standardise(f[k], lo[k], span[k], degen[k]), w[k], hp, he);
+      dot2_step(sf[k], w[k], sp, se);
     }
-    o[i] = hs * (1.f + alpha * sl);
+    const double hs = __dadd_rn(hp, he);
+    const double sl = __dadd_rn(sp, se);
+    o[i] = __dmul_rn(hs, __dadd_rn(1.0, __dmul_rn(alpha, sl)));
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Dynamic shared memory for a resident slice: free and spot (2 x D doubles
+// a host) and the mask byte, rounded up to 16 B.
+template <int D>
+size_t resident_bytes(size_t slice) {
+  return (slice * (16 * D + 1) + 15) / 16 * 16;
+}
+
 template <int D, bool kResident>
-int launch_kernel(const float* free_cap, const uint8_t* masks,
-                  const float* spot, const float* alphas, float alpha_all,
-                  float* out, int n, int b, cudaStream_t stream) {
+int launch_kernel(const double* free_cap, const uint8_t* masks,
+                  const double* spot, const double* alphas, double alpha_all,
+                  double* out, int n, int b, cudaStream_t stream) {
   const int c = cluster_size(n);
   const int slice = (n + c - 1) / c;
-  const size_t smem =
-      kResident ? (static_cast<size_t>(slice) * (8 * D + 1) + 15) / 16 * 16 : 0;
+  const size_t smem = kResident ? resident_bytes<D>(slice) : 0;
   auto kernel = hlem_score_kernel<D, kResident>;
   cudaError_t err = cudaSuccess;
   if (c > 8)
@@ -375,12 +418,12 @@ int launch_kernel(const float* free_cap, const uint8_t* masks,
 }
 
 template <int D>
-int launch_d(const float* free_cap, const uint8_t* masks, const float* spot,
-             const float* alphas, float alpha_all, float* out, int n, int b,
+int launch_d(const double* free_cap, const uint8_t* masks, const double* spot,
+             const double* alphas, double alpha_all, double* out, int n, int b,
              cudaStream_t stream) {
   const int c = cluster_size(n);
   const size_t slice = (static_cast<size_t>(n) + c - 1) / c;
-  if (slice * (8 * D + 1) <= kResidentBytes)
+  if (resident_bytes<D>(slice) <= kResidentBytes)
     return launch_kernel<D, true>(free_cap, masks, spot, alphas, alpha_all,
                                   out, n, b, stream);
   return launch_kernel<D, false>(free_cap, masks, spot, alphas, alpha_all,
@@ -394,14 +437,15 @@ extern "C" int hlem_score_cluster_size(int n) {
   return n > 0 ? cluster_size(n) : 0;
 }
 
-// free_cap (n, d) f32, masks (b, n) u8, spot (n, d) f32, all row-major and
-// contiguous on one device; alphas (b,) f32 on the device, or null to use
-// alpha_all for every row; out (b, n) f32.  1 <= d <= 8, n < 2^24.
-extern "C" int hlem_score_launch(const float* free_cap, const uint8_t* masks,
-                                 const float* spot, const float* alphas,
-                                 float alpha_all, float* out, int n, int d,
+// free_cap (n, d) f64, masks (b, n) u8, spot (n, d) f64, all row-major and
+// contiguous on one device; alphas (b,) f64 on the device, or null to use
+// alpha_all for every row; out (b, n) f64.  1 <= d <= 8, 1 <= n (an int:
+// the count is a double, exact far beyond it).
+extern "C" int hlem_score_launch(const double* free_cap, const uint8_t* masks,
+                                 const double* spot, const double* alphas,
+                                 double alpha_all, double* out, int n, int d,
                                  int b, void* stream) {
-  if (n <= 0 || n >= (1 << 24) || b <= 0 || d < 1 || d > kMaxDims ||
+  if (n <= 0 || b <= 0 || d < 1 || d > kMaxDims ||
       static_cast<long long>(b) * cluster_size(n) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,5 +1,5 @@
 """HLEM-VMP host scoring kernel for Hopper (paper Eqs. 3-11) and its plain
-PyTorch version.
+PyTorch version, both in float64 as the reference's default scorer.
 
 The kernel is ``csrc/hlem_score.cu`` (CUDA C++, ``sm_90a``), the port of the
 Pallas TPU kernel ``repro.kernels.hlem_score`` (``hlem_score_pallas`` and
@@ -35,13 +35,40 @@ _LIB = None
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path, and what the kernel is held against)
 # ---------------------------------------------------------------------------
+def _split(a):
+    """a = hi + lo exactly, hi with at most 26 significant bits (Veltkamp)."""
+    c = 134217729.0 * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _dot2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_k x[..., k] * w[k] by Ogita, Rump and Oishi's Dot2, k = 0..D-1:
+    the running sum p, and the rounding errors of every product (Dekker's
+    two-product; the kernel takes it from one fused multiply-add, the same
+    bits) and every sum (Knuth's two-sum) in s, added to p once at the end."""
+    prod = x * w
+    xh, xl = _split(x)
+    wh, wl = _split(w)
+    err = xl * wl - (((prod - xh * wh) - xl * wh) - xh * wl)
+    p = s = torch.zeros(x.shape[:-1], dtype=torch.float64, device=x.device)
+    for k in range(x.shape[-1]):
+        h = prod[..., k]
+        t = p + h
+        z = t - p
+        s = s + (((p - (t - z)) + (h - z)) + err[..., k])
+        p = t
+    return p + s
+
+
 def hlem_score_ref(free: torch.Tensor, mask: torch.Tensor,
                    spot_frac: torch.Tensor, alpha) -> torch.Tensor:
-    """(n,D) free capacity + (n,) candidate mask -> (n,) float32 scores,
-    -3.4e38 where masked.  Float32 math, as the JAX package's reference."""
-    free = free.to(torch.float32)
+    """(n,D) free capacity + (n,) candidate mask -> (n,) float64 scores,
+    -3.4e38 where masked.  Float64 math, as the JAX package's default
+    (numpy) scorer."""
+    free = free.to(torch.float64)
     mask = mask.to(torch.bool)
-    maskf = mask.to(torch.float32)[:, None]
+    maskf = mask.to(torch.float64)[:, None]
     m = maskf.sum()
 
     lo = torch.where(mask[:, None], free, torch.inf).amin(dim=0)
@@ -65,15 +92,12 @@ def hlem_score_ref(free: torch.Tensor, mask: torch.Tensor,
     d = free.shape[1]
     w = torch.where(gsum > _EPS, g / torch.where(gsum > _EPS, gsum, 1.0), 1.0 / d)
 
-    # per-host dot products in a fixed order (k = 0..D-1), as the kernel
-    # sums them, so that equal hosts score equal wherever they sit: a BLAS
-    # matrix-vector product may round the rows past its last full block
-    # differently, which breaks the exact ties of a fleet of identical hosts
-    spot_frac = spot_frac.to(torch.float32)
-    hs = sl = 0.0
-    for k in range(d):
-        hs = hs + c_std[:, k] * w[k]
-        sl = sl + spot_frac[:, k] * w[k]
+    # both per-host dot products compensated (Dot2), as the kernel computes
+    # them: each is its exact value rounded once, up to ~D^2 u^2 of the sum
+    # of its terms' magnitudes, so hosts whose scores are equal in exact
+    # arithmetic score bit-equal whatever the order of their terms (a plain
+    # sum rounds b + a + a and a + b + a/2 + a/2 apart) or where they sit
+    hs, sl = _dot2(torch.stack([c_std, spot_frac.to(torch.float64)]), w)
     hs = hs * (1.0 + alpha * sl)
     return torch.where(mask, hs, -_BIG)
 
@@ -96,7 +120,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load_library("hlem_score")
         lib.hlem_score_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.hlem_score_launch.restype = ctypes.c_int
         lib.hlem_score_cluster_size.argtypes = [ctypes.c_int]
@@ -134,15 +158,15 @@ def _launch(free: torch.Tensor, masks: torch.Tensor, spot_frac: torch.Tensor,
     n, d = free.shape
     if not 1 <= d <= MAX_DIMS:
         raise ValueError(f"at most {MAX_DIMS} resource dims supported, got {d}")
-    if n >= 1 << 24:
-        raise ValueError(f"n = {n} hosts exceeds the kernel's float32 count")
+    if n >= 1 << 31:
+        raise ValueError(f"n = {n} hosts exceeds the kernel's int host index")
     b = masks.shape[0] if masks.dim() == 2 else -1
-    _check("free", free, device, (torch.float32,), (n, d))
-    _check("spot_frac", spot_frac, device, (torch.float32,), (n, d))
+    _check("free", free, device, (torch.float64,), (n, d))
+    _check("spot_frac", spot_frac, device, (torch.float64,), (n, d))
     _check("masks", masks, device, (torch.bool, torch.uint8), (b, n))
     if alphas is not None:
-        _check("alphas", alphas, device, (torch.float32,), (b,))
-    out = torch.empty((b, n), dtype=torch.float32, device=device)
+        _check("alphas", alphas, device, (torch.float64,), (b,))
+    out = torch.empty((b, n), dtype=torch.float64, device=device)
     if b == 0 or n == 0:
         return out
     with torch.cuda.device(device):
@@ -159,9 +183,9 @@ def _launch(free: torch.Tensor, masks: torch.Tensor, spot_frac: torch.Tensor,
 
 def hlem_score(free: torch.Tensor, mask: torch.Tensor, spot_frac: torch.Tensor,
                alpha: float) -> torch.Tensor:
-    """Kernel path of ``hlem_score_ref``: free (n, D) f32, mask (n,) bool or
-    uint8, spot_frac (n, D) f32, all on one CUDA device; alpha a Python
-    float.  Returns (n,) f32 scores, -3.4e38 at masked hosts."""
+    """Kernel path of ``hlem_score_ref``: free (n, D) f64, mask (n,) bool or
+    uint8, spot_frac (n, D) f64, all on one CUDA device; alpha a Python
+    float.  Returns (n,) f64 scores, -3.4e38 at masked hosts."""
     if mask.dim() != 1:
         raise ValueError(f"mask must be (n,), got shape {tuple(mask.shape)}")
     return _launch(free, mask[None], spot_frac, None, alpha)[0]
@@ -171,7 +195,7 @@ def hlem_score_batch(free: torch.Tensor, masks: torch.Tensor,
                      spot_frac: torch.Tensor,
                      alphas: torch.Tensor) -> torch.Tensor:
     """Kernel path of ``hlem_score_batch_ref``: masks (B, n) bool or uint8,
-    alphas (B,) f32 on the same CUDA device.  Returns (B, n) f32."""
+    alphas (B,) f64 on the same CUDA device.  Returns (B, n) f64."""
     if masks.dim() != 2:
         raise ValueError(f"masks must be (B, n), got shape {tuple(masks.shape)}")
     return _launch(free, masks, spot_frac, alphas, 0.0)

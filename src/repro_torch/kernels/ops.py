@@ -29,7 +29,7 @@ from . import ssm_scan as _ssm
 
 def hlem_score(free: torch.Tensor, mask: torch.Tensor,
                spot_frac: torch.Tensor, alpha: float) -> torch.Tensor:
-    """HLEM-VMP host scores (paper Eqs. 3-11) for one VM: (n,) float32."""
+    """HLEM-VMP host scores (paper Eqs. 3-11) for one VM: (n,) float64."""
     if free.device.type == "cpu":
         return _hlem.hlem_score_ref(free, mask, spot_frac, alpha)
     return _hlem.hlem_score(free, mask, spot_frac, alpha)
@@ -38,7 +38,8 @@ def hlem_score(free: torch.Tensor, mask: torch.Tensor,
 def hlem_score_batch(free: torch.Tensor, masks: torch.Tensor,
                      spot_frac: torch.Tensor,
                      alphas: torch.Tensor) -> torch.Tensor:
-    """HLEM-VMP host scores for B VMs against shared host state: (B, n)."""
+    """HLEM-VMP host scores for B VMs against shared host state: (B, n)
+    float64."""
     if free.device.type == "cpu":
         return _hlem.hlem_score_batch_ref(free, masks, spot_frac, alphas)
     return _hlem.hlem_score_batch(free, masks, spot_frac, alphas)

@@ -1,7 +1,8 @@
 """The port's core scoring and allocation (``repro_torch.core``) against the
 JAX package's (``repro.core``) on the same seeded inputs: numpy oracles bit
-for bit, the torch scorers (plain PyTorch on the CPU) against the jitted JAX
-scorers, and allocation decisions over a seeded stream of host pools."""
+for bit, the torch scorers (plain PyTorch in float64 on the CPU) against
+the jitted JAX scorers and the reference's default (numpy) scorer, and
+allocation decisions over a seeded stream of host pools."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,7 +58,12 @@ def test_numpy_oracles_bit_equal(seed):
 
 # ---------------------------------------------------------------------------
 # torch scorers (plain PyTorch on the CPU) against the jitted JAX scorers
+# and the reference's default float64 numpy scorer
 # ---------------------------------------------------------------------------
+# float64 on both sides; only the order of the sums differs
+F64_RTOL, F64_ATOL = 1e-12, 1e-14
+
+
 @pytest.mark.parametrize("n", [2, 5, 33, 200])
 @pytest.mark.parametrize("alpha", [0.0, -0.5, 0.7])
 def test_torch_scores_match_jax(n, alpha):
@@ -66,10 +72,13 @@ def test_torch_scores_match_jax(n, alpha):
     s_j = np.asarray(rh.hlem_scores_jax(
         jnp.asarray(free, jnp.float32), jnp.asarray(mask),
         jnp.asarray(spot, jnp.float32), jnp.float32(alpha)))
-    assert s_t.dtype == np.float32
+    assert s_t.dtype == np.float64
     if mask.any():
         np.testing.assert_allclose(s_t[mask], s_j[mask], rtol=2e-3, atol=2e-4)
         assert np.argmax(s_t) == np.argmax(s_j)
+        np.testing.assert_allclose(
+            s_t[mask], rh.hlem_scores_np(free, mask, spot, alpha)[mask],
+            rtol=F64_RTOL, atol=F64_ATOL)
     assert np.all(s_t[~mask] <= -BIG / 2)
 
 
@@ -115,6 +124,46 @@ def test_torch_batch_scores_and_select_match_jax():
     assert sel_t[2] == -1
 
 
+def test_torch_select_matches_numpy():
+    """Picks equal the reference's default scorer's (``hlem_pick_np``), on
+    pools with an exact tie (a coarse column) and without."""
+    rng = np.random.default_rng(7)
+    for trial in range(40):
+        n = int(rng.integers(2, 50))
+        free = rng.uniform(0, 10, (n, 4))
+        if trial % 2:
+            free[:, 1] = np.round(free[:, 1] / 5.0)
+        mask = rng.random(n) < 0.5
+        if trial == 0:
+            mask[:] = False
+        spot = rng.uniform(0, 1, (n, 4))
+        for alpha in (0.0, -0.5):
+            got = th.hlem_select_torch(free, mask, spot, alpha, device="cpu")
+            want = rh.hlem_pick_np(free, mask, spot, alpha) if mask.any() else -1
+            assert got == want == rh.hlem_select_np(free, mask, spot, alpha)
+
+
+def test_torch_batch_scores_and_select_match_numpy():
+    rng = np.random.default_rng(3)
+    n, b = 40, 8
+    free = rng.uniform(0, 10, (n, 4))
+    masks = rng.random((b, n)) < 0.6
+    masks[2] = False
+    spot = rng.uniform(0, 1, (n, 4))
+    alphas = np.linspace(-0.5, 0.5, b)
+    s_t = th.hlem_scores_batch_torch(free, masks, spot, alphas,
+                                     device="cpu").numpy()
+    s_n = rh.hlem_scores_batch_np(free, masks, spot, alphas)
+    for i in range(b):
+        if masks[i].any():
+            np.testing.assert_allclose(s_t[i][masks[i]], s_n[i][masks[i]],
+                                       rtol=F64_RTOL, atol=F64_ATOL)
+    sel_t = th.hlem_select_batch_torch(free, masks, spot, alphas, device="cpu")
+    want = [rh.hlem_pick_np(free, masks[i], spot, alphas[i])
+            if masks[i].any() else -1 for i in range(b)]
+    assert sel_t.tolist() == want
+
+
 # ---------------------------------------------------------------------------
 # allocation decisions over a seeded stream of pools
 # ---------------------------------------------------------------------------
@@ -152,12 +201,13 @@ def _queries(types_mod, seed, count=16):
     return out
 
 
-@pytest.mark.parametrize("policy_name", ["hlem-vmp", "hlem-vmp-adjusted"])
-@pytest.mark.parametrize("seed", range(4))
-def test_find_host_decisions_match_reference(policy_name, seed):
+def _decisions_match(policy_name, seed, **ref_kw):
+    """find_host (direct and spot-clearing), find_direct and
+    find_hosts_batch of the port's torch backend on the CPU equal the
+    reference policy's (built with ``ref_kw``) on the same pools."""
     ref_pool = _loaded_pool(rhosts, rtypes, seed)
     port_pool = _loaded_pool(thosts, ttypes, seed)
-    ref_pol = rc.make_policy(policy_name, backend="jax")
+    ref_pol = rc.make_policy(policy_name, **ref_kw)
     port_pol = tc.make_policy(policy_name, backend="torch", device="cpu")
     ref_vms, port_vms = _queries(rtypes, seed), _queries(ttypes, seed)
     for rv, pv in zip(ref_vms, port_vms):
@@ -169,6 +219,19 @@ def test_find_host_decisions_match_reference(policy_name, seed):
     want = ref_pol.find_hosts_batch(ref_vms, ref_pool, 50.0)
     got = port_pol.find_hosts_batch(port_vms, port_pool, 50.0)
     assert got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("policy_name", ["hlem-vmp", "hlem-vmp-adjusted"])
+@pytest.mark.parametrize("seed", range(4))
+def test_find_host_decisions_match_reference(policy_name, seed):
+    _decisions_match(policy_name, seed, backend="jax")
+
+
+@pytest.mark.parametrize("policy_name", ["hlem-vmp", "hlem-vmp-adjusted"])
+@pytest.mark.parametrize("seed", range(4))
+def test_find_host_decisions_match_reference_default(policy_name, seed):
+    """Against the reference's default backend, numpy float64."""
+    _decisions_match(policy_name, seed)
 
 
 def test_policy_parameters_keep_reference_names_and_defaults():

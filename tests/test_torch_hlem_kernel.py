@@ -16,7 +16,9 @@ from repro_torch.core.allocation import HlemVmp, HlemVmpAdjusted
 from repro_torch.kernels import hlem_score as hk
 from repro_torch.kernels import ops
 
-RTOL, ATOL = 1e-4, 1e-5   # float32 on both sides, different summation order
+# the port's float64 plain version against the float32 Pallas kernel and jnp
+# reference (and the float64 numpy oracle), different summation order
+RTOL, ATOL = 1e-4, 1e-5
 
 
 def _rng():

@@ -110,3 +110,15 @@ def test_torch_cpu_row_equals_reference_jax():
     args = ("volatile", "hlem-vmp-adjusted", UNTIL, "gradient-aware")
     _check(port_run(*args, backend="torch", device="cpu"),
            reference_run(*args, backend="jax"))
+
+
+@pytest.mark.parametrize("regime,migration", [
+    ("calm", "none"), ("volatile", "none"), ("correlated", "none"),
+    ("volatile", "gradient-aware")])
+def test_torch_cpu_row_equals_reference_default(regime, migration):
+    """The port's torch backend (plain PyTorch in float64 on the CPU)
+    against the reference at its default (numpy) scorer: same placements,
+    rows and streams."""
+    args = (regime, "hlem-vmp-adjusted", UNTIL, migration)
+    _check(port_run(*args, backend="torch", device="cpu"),
+           reference_run(*args))

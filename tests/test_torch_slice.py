@@ -88,6 +88,14 @@ def test_quick_trace_numpy_backend_equals_reference():
     assert _pinned(port) == QUICK_PINNED
 
 
+def test_quick_trace_torch_cpu_equals_reference_default():
+    ref = _quick_run(rt, rc, rc.make_policy("hlem-vmp-adjusted"))
+    port = _quick_run(tt, tc, tc.make_policy("hlem-vmp-adjusted",
+                                             backend="torch", device="cpu"))
+    assert port == ref
+    assert _pinned(port) == QUICK_PINNED
+
+
 def test_quick_trace_torch_cpu_equals_reference_jax():
     ref = _quick_run(rt, rc, rc.make_policy("hlem-vmp-adjusted",
                                             backend="jax"))

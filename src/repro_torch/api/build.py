@@ -143,7 +143,12 @@ def build(spec: RunSpec, seed: int) -> MarketSimulator:
             faults.events_log = events
         if serve is not None:
             serve.events = events
+    tr = sim.obs
+    if tr.enabled:
+        tr.begin("build", "build/populate")
     WORKLOAD_REGISTRY.get(scenario.workload)(sim, scenario, seed)
+    if tr.enabled:
+        tr.end(sim.now)
     return sim
 
 

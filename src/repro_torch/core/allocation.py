@@ -33,7 +33,9 @@ from .hlem import (
     hlem_pick_np,
     hlem_scores_batch_np,
     hlem_select_batch_torch,
+    hlem_select_batch_torch_traced,
     hlem_select_torch,
+    hlem_select_torch_traced,
     resolve_device,
 )
 from .hosts import HostPool
@@ -76,11 +78,45 @@ def feasibility_masks(vm: Vm, pool: HostPool, now: float):
 
 
 class AllocationPolicy:
+    """Host selection.  Its entries (``find_host``, ``find_direct``,
+    ``find_first_direct``, ``find_hosts_batch``, ``_pick_direct``) are one
+    placement decision each.  With an enabled ``tracer``, the outermost entry
+    of a decision is a ``policy/<entry>`` span (category ``policy``, args
+    ``{"vm": id}`` where records are kept), holding ``policy/filter`` (the
+    direct or clearing mask, market admission, the RsDiff mask) and
+    ``policy/feasibility`` (the queue x fleet matrix) spans and, on the torch
+    scorer, ``policy/stage``, ``policy/launch`` and ``policy/select``
+    (``core/hlem.py``).  Without one, each site costs one attribute load."""
+
     name = "abstract"
 
     #: telemetry hook (``repro.obs``); the build layer swaps in the live
-    #: tracer — batched-flush scoring volume feeds the counter registry
+    #: tracer — decision spans and scoring counters land in it
     tracer = NULL_TRACER
+    #: set while a traced decision's outermost entry runs: nested entries
+    #: then open no span of their own
+    _deciding = False
+    #: the running traced decision's span args (None without records)
+    _span_args = None
+
+    def _decision(self, entry: str, vm_id: int, fn, *args):
+        """``fn(self, *args)`` — the entry ``entry``, re-entered — inside the
+        decision's ``policy/<entry>`` span (the tracer is enabled)."""
+        tr = self.tracer
+        self._span_args = {"vm": int(vm_id)} if tr.keep_records else None
+        self._deciding = True
+        tr.begin("policy", "policy/" + entry)
+        try:
+            out = fn(self, *args)
+        finally:
+            self._deciding = False
+        tr.end(tr.sim_t, self._span_args)
+        return out
+
+    def _end_span(self) -> None:
+        """Close a child span of the running decision."""
+        tr = self.tracer
+        tr.end(tr.sim_t, self._span_args)
 
     def _pick(self, mask: np.ndarray, vm: Vm, pool: HostPool) -> int:
         raise NotImplementedError
@@ -88,14 +124,27 @@ class AllocationPolicy:
     def find_host(
         self, vm: Vm, pool: HostPool, now: float, allow_spot_clearing: bool
     ) -> Tuple[int, bool]:
-        hid = self._pick(pool.direct_mask_into(vm.demand, vm.bid, vm.pool),
-                         vm, pool)
+        tr = self.tracer
+        if tr.enabled:
+            if not self._deciding:
+                return self._decision("find_host", vm.id,
+                                      AllocationPolicy.find_host, vm, pool,
+                                      now, allow_spot_clearing)
+            tr.begin("policy", "policy/filter")
+        mask = pool.direct_mask_into(vm.demand, vm.bid, vm.pool)
+        if tr.enabled:
+            self._end_span()
+        hid = self._pick(mask, vm, pool)
         if hid >= 0:
             return hid, False
         if allow_spot_clearing and not vm.is_spot:
+            if tr.enabled:
+                tr.begin("policy", "policy/filter")
             pool.refresh_reclaim(now)
-            hid = self._pick(
-                pool.clearing_mask_into(vm.demand, vm.bid, vm.pool), vm, pool)
+            mask = pool.clearing_mask_into(vm.demand, vm.bid, vm.pool)
+            if tr.enabled:
+                self._end_span()
+            hid = self._pick(mask, vm, pool)
             if hid >= 0:
                 return hid, True
         return -1, False
@@ -103,11 +152,23 @@ class AllocationPolicy:
     def _pick_direct(self, mask: np.ndarray, vm: Vm, pool: HostPool) -> int:
         """Select from a direct-feasibility mask; >= 0 whenever mask is
         non-empty.  Shared by ``find_host`` and the batched flush."""
+        if self.tracer.enabled and not self._deciding:
+            return self._decision("_pick_direct", vm.id,
+                                  AllocationPolicy._pick_direct, mask, vm,
+                                  pool)
         return self._pick(mask, vm, pool)
 
     def find_direct(self, vm: Vm, pool: HostPool) -> int:
         """Direct placement only (no spot clearing): chosen host or -1."""
+        tr = self.tracer
+        if tr.enabled:
+            if not self._deciding:
+                return self._decision("find_direct", vm.id,
+                                      AllocationPolicy.find_direct, vm, pool)
+            tr.begin("policy", "policy/filter")
         mask = pool.direct_mask_into(vm.demand, vm.bid, vm.pool)
+        if tr.enabled:
+            self._end_span()
         if not mask.any():
             return -1
         return self._pick_direct(mask, vm, pool)
@@ -122,10 +183,19 @@ class AllocationPolicy:
         with spot clearing ignored (for HLEM, up to float summation order in
         the batched scorer).  The result is only valid until the pool mutates
         (committing one row invalidates the rest)."""
+        tr = self.tracer
+        if tr.enabled:
+            if not self._deciding:
+                return self._decision("find_hosts_batch", vms[0].id,
+                                      AllocationPolicy.find_hosts_batch, vms,
+                                      pool, now)
+            tr.begin("policy", "policy/feasibility")
         demands = np.stack([vm.demand for vm in vms])
         bids = np.array([vm.bid for vm in vms])
         pids = np.array([vm.pool for vm in vms], dtype=np.int64)
         feas = pool.direct_mask_batch(demands, bids, pids)
+        if tr.enabled:
+            self._end_span()
         return self._pick_batch(feas, vms, pool)
 
     def find_first_direct(
@@ -140,9 +210,14 @@ class AllocationPolicy:
         greedy commit loop re-decides only the suffix after each placement,
         so scoring work is one pass per placement instead of per queued VM."""
         nvm = len(vms)
-        if self.tracer.enabled:
-            self.tracer.counters.inc("alloc/batch_calls")
-            self.tracer.counters.inc("alloc/batch_rows", nvm)
+        tr = self.tracer
+        if tr.enabled:
+            if not self._deciding:
+                return self._decision("find_first_direct", vms[0].id,
+                                      AllocationPolicy.find_first_direct,
+                                      vms, pool)
+            tr.counters.inc("alloc/batch_rows", nvm)
+            tr.begin("policy", "policy/feasibility")
         demands = np.empty((nvm, vms[0].demand.shape[0]))
         bids = np.empty(nvm)
         pids = np.empty(nvm, dtype=np.int64)
@@ -152,6 +227,8 @@ class AllocationPolicy:
             pids[b] = vm.pool
         feas = pool.direct_mask_batch(demands, bids, pids)
         any_row = feas.any(axis=1)
+        if tr.enabled:
+            self._end_span()
         for b in np.flatnonzero(any_row):
             return int(b), self._pick_direct(feas[b], vms[b], pool)
         return nvm, -1
@@ -260,18 +337,33 @@ class HlemVmp(AllocationPolicy):
         spot_frac = pool.spot_frac_view()
         alpha = self._alpha_for(vm)
         if self.backend == "torch":
+            tr = self.tracer
+            if tr.enabled:
+                return hlem_select_torch_traced(
+                    tr, self._span_args, free, mask, spot_frac, alpha,
+                    self.device)
             return hlem_select_torch(free, mask, spot_frac, alpha,
                                      self.device)
         return hlem_pick_np(free, mask, spot_frac, alpha)
 
     def _pick_direct(self, mask, vm, pool):
+        tr = self.tracer
+        if tr.enabled and not self._deciding:
+            return self._decision("_pick_direct", vm.id, HlemVmp._pick_direct,
+                                  mask, vm, pool)
         # primary candidate list: feasible AND RsDiff above threshold;
         # relaxed to plain feasibility if that leaves no candidate
         if self.backend == "torch":
-            rs_ok = self._rsdiff_ok(vm, pool)
-            hid = self._score_pick(mask & rs_ok, vm, pool)
+            if tr.enabled:
+                tr.begin("policy", "policy/filter")
+            primary = mask & self._rsdiff_ok(vm, pool)
+            if tr.enabled:
+                self._end_span()
+            hid = self._score_pick(primary, vm, pool)
             if hid >= 0:
                 return hid
+            if tr.enabled:
+                tr.counters.inc("hlem/rescored")
             return self._score_pick(mask, vm, pool)
         # numpy hot path: compress once, apply Eqs. 1-2 on the candidates only
         return self._pick_direct_idx(np.flatnonzero(mask), vm, pool)
@@ -281,26 +373,45 @@ class HlemVmp(AllocationPolicy):
             return -1
         if idx.size == 1:
             return int(idx[0])  # RsDiff filtering cannot change a 1-set pick
+        tr = self.tracer
+        if tr.enabled:
+            tr.begin("policy", "policy/filter")
         tot, util = pool.rsdiff_inputs()
         rs_ok = (vm.demand[0] / tot[idx] - util[idx] * self.rc
                  ) > self.threshold
         cand = idx[rs_ok] if rs_ok.any() else idx
+        if tr.enabled:
+            self._end_span()
         return hlem_pick_candidates_np(
             pool.free(), cand, pool.spot_frac_view(), self._alpha_for(vm))
 
     def find_host(self, vm, pool, now, allow_spot_clearing):
+        tr = self.tracer
+        if tr.enabled:
+            if not self._deciding:
+                return self._decision("find_host", vm.id, HlemVmp.find_host,
+                                      vm, pool, now, allow_spot_clearing)
+            tr.begin("policy", "policy/filter")
         if self.backend == "torch":
             direct = pool.direct_mask_into(vm.demand, vm.bid, vm.pool)
+            if tr.enabled:
+                self._end_span()
             if direct.any():
                 return self._pick_direct(direct, vm, pool), False
         else:
             idx = pool.direct_idx_into(vm.demand, vm.bid, vm.pool)
+            if tr.enabled:
+                self._end_span()
             if idx.size:
                 return self._pick_direct_idx(idx, vm, pool), False
         # spot-clearing list (Algorithm 1, lines 8-10) — on-demand only
         if allow_spot_clearing and not vm.is_spot:
+            if tr.enabled:
+                tr.begin("policy", "policy/filter")
             pool.refresh_reclaim(now)
             clearing = pool.clearing_mask_into(vm.demand, vm.bid, vm.pool)
+            if tr.enabled:
+                self._end_span()
             if clearing.any():
                 return self._pick_direct(clearing, vm, pool), True
         return -1, False
@@ -308,8 +419,16 @@ class HlemVmp(AllocationPolicy):
     def find_direct(self, vm, pool):
         if self.backend == "torch":
             return super().find_direct(vm, pool)
-        return self._pick_direct_idx(
-            pool.direct_idx_into(vm.demand, vm.bid, vm.pool), vm, pool)
+        tr = self.tracer
+        if tr.enabled:
+            if not self._deciding:
+                return self._decision("find_direct", vm.id,
+                                      HlemVmp.find_direct, vm, pool)
+            tr.begin("policy", "policy/filter")
+        idx = pool.direct_idx_into(vm.demand, vm.bid, vm.pool)
+        if tr.enabled:
+            self._end_span()
+        return self._pick_direct_idx(idx, vm, pool)
 
     def _pick_batch(self, feas, vms, pool):
         B = feas.shape[0]
@@ -317,6 +436,9 @@ class HlemVmp(AllocationPolicy):
         rows = np.flatnonzero(feas.any(axis=1))
         if rows.size == 0:
             return out
+        tr = self.tracer
+        if tr.enabled:
+            tr.begin("policy", "policy/filter")
         # Eqs. 1-2 vectorized over the batch: rs[b, i] for every (VM, host)
         tot, util = pool.rsdiff_inputs()
         demands_cpu = np.array([vms[b].demand[0] for b in rows])
@@ -325,8 +447,15 @@ class HlemVmp(AllocationPolicy):
         primary = feas[rows] & rs_ok
         use_primary = primary.any(axis=1)
         masks = np.where(use_primary[:, None], primary, feas[rows])
+        if tr.enabled:
+            self._end_span()
         alphas = np.array([self._alpha_for(vms[b]) for b in rows])
         if self.backend == "torch":
+            if tr.enabled:
+                out[rows] = hlem_select_batch_torch_traced(
+                    tr, self._span_args, pool.free(), masks,
+                    pool.spot_frac_view(), alphas, self.device)
+                return out
             out[rows] = hlem_select_batch_torch(
                 pool.free(), masks, pool.spot_frac_view(), alphas, self.device)
             return out

@@ -438,6 +438,72 @@ def hlem_select_batch_torch(
     return np.where(masks.any(axis=1), idx.cpu().numpy(), -1)
 
 
+# Traced twins of the two selections, chosen by the policy once per call when
+# its tracer is enabled (the untraced path runs the functions above as they
+# are): the same calls, split into ``policy/stage`` (``stage_to_device``: the
+# wait on the previous copy, the copy into pinned memory, the enqueued H2D and
+# the views), ``policy/launch`` (``kernels.ops`` to the kernel's launch) and
+# ``policy/select`` (the argmax and the host's read of the pick: the D2H and
+# the wait for the kernel), with counters ``hlem/calls`` (scoring calls: one
+# kernel launch each on the card) and ``hlem/staged_bytes`` (the
+# workspace's bytes on the card; on the CPU the arrays handed over).
+def _staged_bytes(device: torch.device, *tensors) -> int:
+    if device.type == "cpu":
+        return sum(t.nbytes for t in tensors if t is not None)
+    return _DEVICE_WS[device].nbytes
+
+
+def hlem_select_torch_traced(tracer, args, free, mask, spot_frac, alpha,
+                             device="cuda") -> int:
+    """:func:`hlem_select_torch` in the tracer's spans (``args`` their
+    args) and counters."""
+    mask = np.asarray(mask, dtype=bool)
+    if not mask.any():
+        return -1
+    tr = tracer
+    device = resolve_device(device)
+    tr.begin("policy", "policy/stage")
+    free_d, masks_d, spot_d, _ = stage_to_device(device, free, mask[None],
+                                                 spot_frac)
+    tr.end(tr.sim_t, args)
+    tr.begin("policy", "policy/launch")
+    scores = ops.hlem_score(free_d, masks_d[0], spot_d, float(alpha))
+    tr.end(tr.sim_t, args)
+    tr.begin("policy", "policy/select")
+    hid = int(torch.argmax(scores))
+    tr.end(tr.sim_t, args)
+    inc = tr.counters.inc
+    inc("hlem/calls")
+    inc("hlem/staged_bytes", _staged_bytes(device, free_d, masks_d, spot_d))
+    return hid
+
+
+def hlem_select_batch_torch_traced(tracer, args, free, masks, spot_frac,
+                                   alpha, device="cuda") -> np.ndarray:
+    """:func:`hlem_select_batch_torch` in the tracer's spans (``args``
+    their args) and counters."""
+    tr = tracer
+    device = resolve_device(device)
+    tr.begin("policy", "policy/stage")
+    masks = np.asarray(masks, dtype=bool)
+    alphas = np.full(masks.shape[0], alpha, dtype=np.float64)
+    free_d, masks_d, spot_d, alphas_d = stage_to_device(
+        device, free, masks, spot_frac, alphas)
+    tr.end(tr.sim_t, args)
+    tr.begin("policy", "policy/launch")
+    scores = ops.hlem_score_batch(free_d, masks_d, spot_d, alphas_d)
+    tr.end(tr.sim_t, args)
+    tr.begin("policy", "policy/select")
+    out = np.where(masks.any(axis=1),
+                   torch.argmax(scores, dim=1).cpu().numpy(), -1)
+    tr.end(tr.sim_t, args)
+    inc = tr.counters.inc
+    inc("hlem/calls")
+    inc("hlem/staged_bytes",
+        _staged_bytes(device, free_d, masks_d, spot_d, alphas_d))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Filtering math shared by the policy layer
 # ---------------------------------------------------------------------------

@@ -299,6 +299,7 @@ class MarketSimulator:
             ev = heappop(heap)[3]
             t = ev.time
             self.now = t
+            tr.sim_t = t
             kind_name = ev.kind.value
             inc("events/total")
             inc("events/" + kind_name)
@@ -389,8 +390,6 @@ class MarketSimulator:
         self._record()
 
     def _try_allocate(self, vm: Vm, fresh: bool) -> bool:
-        if self.obs.enabled:
-            self.obs.counters.inc("alloc/find_host")
         hid, needs_clearing = self.policy.find_host(
             vm, self.pool, self.now, allow_spot_clearing=True
         )
@@ -1126,11 +1125,17 @@ class MarketSimulator:
                 min(self._retry_pos.values(), default=pool.gain_pos()))
 
     def _flush_batch_pass(self, pending) -> int:
-        """One pass over the queue snapshot; returns the number placed."""
+        """One pass over the queue snapshot; returns the number placed.
+        Traced, it counts ``flush/passes``, ``flush/rows_scanned`` (rows
+        the memo filter looked at) and ``flush/rows_tested`` (rows that
+        reached the policy)."""
         pool, placed, i = self.pool, 0, 0
         retry, log = self._retry_pos, pool.gain_log
         fits = pool.fits_fast
         n_pending = len(pending)
+        tr = self.obs
+        if tr.enabled:
+            tr.counters.inc("flush/passes")
         while i < n_pending:
             # memo filter: keep only VMs that might fit under current state —
             # a VM that failed its last full test can only have become
@@ -1154,6 +1159,9 @@ class MarketSimulator:
                         retry[vm.id] = glen
                         continue
                 check.append(j)
+            if tr.enabled:
+                tr.counters.inc("flush/rows_scanned", n_pending - i)
+                tr.counters.inc("flush/rows_tested", len(check))
             if not check:
                 break
             # one feasibility matrix decides which VM places (a VM places iff

@@ -161,6 +161,9 @@ def wire_trace(sim: MarketSimulator, tr: Trace,
     become submitted VMs.  Shared by :func:`simulate_trace` and the scenario
     API's ``trace`` workload, so both wire bit-identically."""
     cfg = cfg or TraceConfig()
+    obs = sim.obs
+    if obs.enabled:
+        obs.begin("build", "build/wire_trace")
     # machine id -> host id mapping (machines can be re-added)
     m2h: Dict[int, int] = {}
     for (t, mid, event, cpu, ram, bw, st) in sorted(tr.machine_events):
@@ -187,6 +190,8 @@ def wire_trace(sim: MarketSimulator, tr: Trace,
             vm = make_on_demand(vid, demand, dur, waiting_timeout=3600.0,
                                 submit_time=t)
         sim.submit(vm)
+    if obs.enabled:
+        obs.end(sim.now)
     return sim
 
 

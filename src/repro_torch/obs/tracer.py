@@ -136,7 +136,19 @@ class Tracer:
         self.profile_enabled = bool(profile)
         self.counters_every = counters_every
         self.clock = clock
-        self.epoch = clock()
+        # the epoch is anchored on the real-time clock, which the CUDA
+        # profiler's trace counts from: a real-time read bracketed by two
+        # reads of ``clock``, the epoch their midpoint (``to_unix_ns``)
+        before = clock()
+        self.epoch_unix_ns = time.time_ns()
+        after = clock()
+        self.epoch = 0.5 * (before + after)
+        #: width of the anchor's bracket (s): the mapping's own uncertainty
+        self.anchor_s = after - before
+        #: simulated time of the event being dispatched, set by the
+        #: simulator's traced loop: the end stamp of spans opened by
+        #: components that do not hold the simulation clock (the policy)
+        self.sim_t = 0.0
         self.spans: List[tuple] = []
         self.instants: List[tuple] = []
         self.counters = Counters()
@@ -212,6 +224,13 @@ class Tracer:
     # ---------------------------------------------------------- reporting
     def wall_elapsed(self) -> float:
         return self.clock() - self.epoch
+
+    def to_unix_ns(self, t: float) -> int:
+        """A time ``t`` (s from the epoch, as span records' ``t0_s``) on the
+        real-time clock, in ns since the Unix epoch: the clock of the CUDA
+        profiler's trace (``kineto_results.trace_start_ns()``).  Exact to
+        ``anchor_s`` plus the two clocks' drift over ``t``."""
+        return self.epoch_unix_ns + round(t * 1e9)
 
     def profile(self) -> Dict[Tuple[str, str], list]:
         """``(cat, name) -> [count, total_s, self_s]`` aggregate (live

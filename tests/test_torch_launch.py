@@ -66,13 +66,38 @@ def test_trace_and_observed_run_equal_reference(capsys, tmp_path):
     assert {k: v for k, v in got.items() if k not in drop} == \
         {k: v for k, v in want.items() if k not in drop}
     argv = ["--market", "--regimes", "volatile", "--policy",
-            "hlem-vmp-adjusted", "--until", "1800", "--counters-every", "600",
-            "--profile-out", str(tmp_path / "p.json"),
-            "--trace-out", str(tmp_path / "t.json")]
-    got, want = _both(argv, capsys)
+            "hlem-vmp-adjusted", "--until", "1800", "--counters-every", "600"]
+
+    def outputs(who):
+        return ["--profile-out", str(tmp_path / f"{who}_p.json"),
+                "--trace-out", str(tmp_path / f"{who}_t.json")]
+    got = _json(tmain, argv + outputs("port") + ["--device", "cpu", "--json"],
+                capsys)
+    want = _json(rmain, argv + outputs("ref") + ["--json"], capsys)
     assert _rows(got) == _rows(want)
-    assert got["counters"] == want["counters"]
-    assert json.load(open(tmp_path / "p.json"))["rows"]
+    # counters on the reference's names; the port keeps scoring and flush
+    # counters of its own, and drops two that its decision spans count
+    port_only, ref_only = ("hlem/", "flush/"), ("alloc/find_host",
+                                                "alloc/batch_calls")
+
+    def common(counters, drop):
+        def keep(values):
+            return {k: v for k, v in values.items() if not drop(k)}
+        return {"every": counters["every"], "final": keep(counters["final"]),
+                "series": [{"t": s["t"], "values": keep(s["values"])}
+                           for s in counters["series"]]}
+    assert common(got["counters"], lambda k: k.startswith(port_only)) == \
+        common(want["counters"], lambda k: k in ref_only)
+    final = got["counters"]["final"]
+    assert final["hlem/calls"] > 0 and final["flush/passes"] > 0
+    assert not set(final) & set(ref_only)
+    rows = json.load(open(tmp_path / "port_p.json"))["rows"]
+    count = {r["name"]: r["count"] for r in rows if r["cat"] == "policy"}
+    for name, key in (("policy/find_host", "alloc/find_host"),
+                      ("policy/find_first_direct", "alloc/batch_calls")):
+        assert count[name] == want["counters"]["final"][key]
+    assert count["policy/launch"] == final["hlem/calls"]
+    assert json.load(open(tmp_path / "ref_p.json"))["rows"]
 
 
 def test_sanitized_run_equals_reference(capsys):

@@ -214,10 +214,39 @@ def test_sweep_report_equals_reference(tmp_path):
 # ---------------------------------------------------------------------------
 # export, profile and manifest: the wall-clock parts are left out
 # ---------------------------------------------------------------------------
-def _sim_track(doc):
-    """The sim-time track of a Chrome trace without its wall-clock fields."""
+#: span categories only the port records: the policy's decisions (inside
+#: the dispatch and flush spans) and the builds
+PORT_CATS = {"policy", "build"}
+#: counters only the port keeps (scoring calls, rows, bytes; flush rows),
+#: and the two the port dropped: its decision spans' counts give them
+PORT_COUNTERS = ("hlem/", "flush/")
+REF_COUNTERS = {"alloc/find_host", "alloc/batch_calls"}
+
+
+def _on_reference_names(doc, port):
+    """A Chrome trace's events under the names both packages record: the
+    port's own categories and counters, or the reference's dropped
+    counters, taken out; tids (first-seen order) replaced by their
+    category's name."""
+    names = {ev["tid"]: ev["args"]["name"] for ev in doc["traceEvents"]
+             if ev["name"] == "thread_name"}
     out = []
     for ev in doc["traceEvents"]:
+        cat = names.get(ev["tid"])
+        if ev["ph"] == "C":
+            if (ev["name"].startswith(PORT_COUNTERS) if port
+                    else ev["name"] in REF_COUNTERS):
+                continue
+        elif port and cat in PORT_CATS:
+            continue
+        out.append({**ev, "tid": cat})
+    return out
+
+
+def _sim_track(events):
+    """The sim-time track of a Chrome trace without its wall-clock fields."""
+    out = []
+    for ev in events:
         if ev.get("pid") == to.export.PID_WALL and ev["ph"] != "M":
             continue
         ev = dict(ev)
@@ -235,18 +264,40 @@ def test_chrome_trace_valid_and_equal_to_reference(runs, tmp_path):
     assert ro.validate_chrome_trace(json.load(open(tmp_path / "t.json"))) == []
     assert doc["otherData"] == {"seed": 0}
     want = ro.chrome_trace(ref)
-    assert _sim_track(doc) == _sim_track(want)
-    assert len(doc["traceEvents"]) == len(want["traceEvents"])
+    got = _on_reference_names(doc, port=True)
+    assert _sim_track(got) == _sim_track(_on_reference_names(want, False))
+    assert len(got) == len(_on_reference_names(want, False))
     assert any(ev["ph"] == "C" for ev in doc["traceEvents"])
+    # the port's own: each decision a policy span with the vm's id, its
+    # children stamped with the same id and sim time
+    spans = [ev for ev in doc["traceEvents"] if ev["ph"] == "X"
+             and ev["pid"] == to.export.PID_SIM and ev["cat"] == "policy"]
+    names = {ev["name"] for ev in spans}
+    assert {"policy/find_host", "policy/filter", "policy/stage",
+            "policy/launch", "policy/select"} <= names
+    assert all(isinstance(ev["args"]["vm"], int) for ev in spans)
+    counters = {ev["name"] for ev in doc["traceEvents"] if ev["ph"] == "C"}
+    assert {"hlem/calls", "hlem/staged_bytes",
+            "flush/passes"} <= counters
+    assert not counters & REF_COUNTERS
     bad = {"traceEvents": [{"ph": "X", "pid": 9, "ts": -1}]}
     assert to.validate_chrome_trace(bad) == ro.validate_chrome_trace(bad)
 
 
 def test_profile_equals_reference_but_for_wall_times(runs, tmp_path):
     port, ref = runs["port"]["sim"].obs, runs["ref"]["sim"].obs
-    key = lambda rows: sorted((r["cat"], r["name"], r["count"]) for r in rows)
+    key = lambda rows: sorted((r["cat"], r["name"], r["count"]) for r in rows
+                              if r["cat"] not in PORT_CATS)
     rows = to.profile_table(port)
     assert key(rows) == key(ro.profile_table(ref))
+    # the port's decisions: find_host spans as many as the reference's
+    # find_host counter, and as many launches as scoring calls
+    count = {r["name"]: r["count"] for r in rows if r["cat"] == "policy"}
+    assert count["policy/find_host"] == ref.counters.values["alloc/find_host"]
+    assert count["policy/find_first_direct"] == \
+        ref.counters.values["alloc/batch_calls"]
+    assert count["policy/launch"] == count["policy/select"] == \
+        port.counters.values["hlem/calls"]
     assert [r["self_ms"] for r in rows] == sorted(
         (r["self_ms"] for r in rows), reverse=True)
     assert sum(r["self_pct"] for r in rows) == pytest.approx(100.0, abs=0.01)

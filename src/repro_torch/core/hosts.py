@@ -76,6 +76,9 @@ class HostPool:
         self.epoch = 0
         #: total - used where active, 0 elsewhere; updated row-wise in place
         self._free = np.zeros((n, N_DIMS), dtype=np.float64)
+        #: ``_free`` transposed, bit for bit: the masks compare each
+        #: dimension's contiguous row and reduce over the short leading axis
+        self._free_t = np.zeros((N_DIMS, n), dtype=np.float64)
         #: spot_used / max(total, 1e-9) per (host, dim)
         self._spot_frac = np.zeros((n, N_DIMS), dtype=np.float64)
         #: max(total, 1e-9) — the spot_frac denominator, refreshed only when
@@ -99,10 +102,10 @@ class HostPool:
         self.gain_log: List[int] = []
         self._gain_base = 0
         # scratch buffers for zero-allocation mask computation
-        self._scratch_ge = np.zeros((n, N_DIMS), dtype=bool)
+        self._scratch_ge = np.zeros((N_DIMS, n), dtype=bool)
         self._scratch_row = np.zeros(n, dtype=bool)
         self._scratch_row2 = np.zeros(n, dtype=bool)
-        self._scratch_sum = np.zeros((n, N_DIMS), dtype=np.float64)
+        self._scratch_sum = np.zeros((N_DIMS, n), dtype=np.float64)
         self._scratch_dm = np.zeros(N_DIMS, dtype=np.float64)
         # -- market state (inert until enable_market) ------------------------
         #: capacity pool each host belongs to (region / instance class)
@@ -156,6 +159,8 @@ class HostPool:
         self.active = np.concatenate([self.active, np.zeros(pad, dtype=bool)])
         self.residents.extend(dict() for _ in range(pad))
         self._free = vpad(self._free)
+        self._free_t = np.hstack(
+            [self._free_t, np.zeros((N_DIMS, pad), dtype=np.float64)])
         self._spot_frac = vpad(self._spot_frac)
         self._tot_clamped = vpad(self._tot_clamped, _EPS)
         self._rs_tot_cpu = np.concatenate(
@@ -163,10 +168,10 @@ class HostPool:
         self._rs_util_cpu = np.concatenate(
             [self._rs_util_cpu, np.zeros(pad, dtype=np.float64)])
         self._reclaim_ready = vpad(self._reclaim_ready)
-        self._scratch_ge = np.zeros((new_cap, N_DIMS), dtype=bool)
+        self._scratch_ge = np.zeros((N_DIMS, new_cap), dtype=bool)
         self._scratch_row = np.zeros(new_cap, dtype=bool)
         self._scratch_row2 = np.zeros(new_cap, dtype=bool)
-        self._scratch_sum = np.zeros((new_cap, N_DIMS), dtype=np.float64)
+        self._scratch_sum = np.zeros((N_DIMS, new_cap), dtype=np.float64)
         self.pool_of = np.concatenate(
             [self.pool_of, np.zeros(pad, dtype=np.int64)])
         self._host_price = np.concatenate(
@@ -182,8 +187,10 @@ class HostPool:
         """Recompute load-derived caches for one host (place/release path)."""
         if self.active[hid]:
             np.subtract(self.total[hid], self.used[hid], out=self._free[hid])
+            self._free_t[:, hid] = self._free[hid]
         else:
             self._free[hid] = 0.0
+            self._free_t[:, hid] = 0.0
         if spot_changed:
             np.divide(self.spot_used[hid], self._tot_clamped[hid],
                       out=self._spot_frac[hid])
@@ -295,9 +302,9 @@ class HostPool:
         ``*_mask_into`` call."""
         n = self.n
         np.subtract(demand, _EPS, out=self._scratch_dm)
-        np.greater_equal(self._free[:n], self._scratch_dm,
-                         out=self._scratch_ge[:n])
-        np.logical_and.reduce(self._scratch_ge[:n], axis=1,
+        np.greater_equal(self._free_t[:, :n], self._scratch_dm[:, None],
+                         out=self._scratch_ge[:, :n])
+        np.logical_and.reduce(self._scratch_ge[:, :n], axis=0,
                               out=self._scratch_row[:n])
         np.logical_and(self._scratch_row[:n], self.active[:n],
                        out=self._scratch_row[:n])
@@ -313,11 +320,12 @@ class HostPool:
         :meth:`direct_mask_into` (separate buffer, so one direct + one
         clearing mask may be alive simultaneously)."""
         n = self.n
-        np.add(self._free[:n], self._reclaim_ready[:n],
-               out=self._scratch_sum[:n])
-        np.greater_equal(self._scratch_sum[:n], demand - _EPS,
-                         out=self._scratch_ge[:n])
-        np.logical_and.reduce(self._scratch_ge[:n], axis=1,
+        np.add(self._free_t[:, :n], self._reclaim_ready[:n].T,
+               out=self._scratch_sum[:, :n])
+        np.subtract(demand, _EPS, out=self._scratch_dm)
+        np.greater_equal(self._scratch_sum[:, :n], self._scratch_dm[:, None],
+                         out=self._scratch_ge[:, :n])
+        np.logical_and.reduce(self._scratch_ge[:, :n], axis=0,
                               out=self._scratch_row2[:n])
         np.logical_and(self._scratch_row2[:n], self.active[:n],
                        out=self._scratch_row2[:n])
@@ -340,7 +348,9 @@ class HostPool:
         :meth:`market_admit` row-wise."""
         demands = np.asarray(demands, dtype=np.float64)
         n = self.n
-        ok = np.all(self._free[None, :n] >= demands[:, None] - _EPS, axis=2)
+        ok = np.logical_and.reduce(
+            self._free_t[:, None, :n] >= (demands - _EPS).T[:, :, None],
+            axis=0)
         ok &= self.active[:n][None]
         if self._market_on and bids is not None:
             finite = np.isfinite(bids)
@@ -725,6 +735,8 @@ class HostPool:
         # cached arrays vs from-scratch recomputation
         f = np.where(self.active[:n, None], self.total[:n] - self.used[:n], 0.0)
         assert np.allclose(f, self._free[:n], atol=1e-9), "stale free cache"
+        assert np.array_equal(self._free_t[:, :n], self._free[:n].T), (
+            "free mirror differs from the free cache")
         sf = self.spot_used[:n] / np.maximum(self.total[:n], _EPS)
         assert np.allclose(sf, self._spot_frac[:n], atol=1e-12), (
             "stale spot_frac cache")

@@ -414,6 +414,132 @@ def bound(free, masks):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def staging_paths(torch, core_hlem, HostPool, n, calls=300, rows=2,
+                  seed=0):
+    """Host time of one scoring call's staging at n hosts through each path,
+    on the host clock: the whole fleet (the device's shared workspace) and
+    the pool's device mirror with ``rows`` rows written between calls (a
+    placement writes one, a release one).  Each call starts with the card
+    idle, as after the last call's pick.  Returns (medians in us, the
+    mirror's bytes a call)."""
+    rng = np.random.default_rng(seed)
+    pool = HostPool()
+    base = np.array([1.0, 2048.0, 250.0, 25_000.0])
+    for _ in range(n):
+        pool.add_host(float(rng.choice([16.0, 32.0, 64.0])) * base)
+    dev = core_hlem.resolve_device("cuda")
+    mirror = core_hlem._FleetMirror(dev)
+    mask = rng.random(n) < 0.7
+    clock = time.perf_counter
+    took = {"full": [], "mirror": []}
+    for i in range(calls + 20):
+        for hid in rng.choice(n, rows, replace=False):
+            pool.update_host(int(hid), pool.total[hid])
+        order = ("full", "mirror") if i % 2 else ("mirror", "full")
+        for path in order:
+            torch.cuda.synchronize()
+            t0 = clock()
+            if path == "full":
+                core_hlem.stage_to_device(dev, pool.free(), mask,
+                                          pool.spot_frac_view())
+            else:
+                mirror.stage(pool, mask, None)
+            dt = clock() - t0
+            if i >= 20:
+                took[path].append(dt)
+    torch.cuda.synchronize()
+    if mirror.full or mirror.rows_sent != rows:
+        fail(f"staging probe n={n}: the mirror sent full={mirror.full}, "
+             f"{mirror.rows_sent} rows, not {rows} rows")
+    return ({k: statistics.median(v) * 1e6 for k, v in took.items()},
+            mirror.nbytes)
+
+
+def check_mirror_upload(torch, core_hlem, hk, HostPool, make_spot, resources,
+                        n, seed=0):
+    """The upload of a pool's device mirror (gather, one copy, the
+    ``fleet_mirror_scatter`` launch) against its plain version on the card:
+    after each call with k rows written (spot placements, which change free
+    and the spot fraction, and new capacities), k = 1, 2 (with B = 64), 3,
+    0 and the share of the fleet (``MIRROR_FULL_SHARE``), the device's
+    planes, rows beyond n too, must equal ``mirror_scatter_ref`` of
+    ``mirror_gather_ref``'s rows applied to a clone of the planes taken
+    before the call, bit for bit, and equal the pool's own rows; each call
+    must launch the scatter once and send only its rows.  One row past the
+    share, the call must send the whole fleet.  Returns the number of calls
+    checked."""
+    rng = np.random.default_rng(seed)
+    pool = HostPool()
+    base = np.array([1.0, 2048.0, 250.0, 25_000.0])
+    for _ in range(n):
+        pool.add_host(float(rng.choice([16.0, 32.0, 64.0])) * base)
+    next_id = [20_000_000]
+
+    def write(hid):
+        c = float(rng.choice([1.0, 2.0]))
+        vm = make_spot(next_id[0], resources(c, c * 1536.0, 10.0, 1000.0),
+                       3600.0)
+        if rng.random() < 0.5 and pool.fits_fast(hid, vm.demand):
+            pool.place(vm, hid)
+            next_id[0] += 1
+        else:
+            pool.update_host(hid, pool.total[hid] * rng.uniform(1.0, 1.05))
+
+    for hid in range(0, n, 3):
+        write(hid)
+    dev = core_hlem.resolve_device("cuda")
+    mirror = core_hlem._FleetMirror(dev)
+    rows = pool.planes().shape[1]
+
+    def planes_d():
+        return mirror.dev[:16 * rows * 4].view(torch.float64).view(2, rows, 4)
+
+    # the first call (B = 64 sizes the buffers) sends the whole fleet
+    mirror.stage(pool, rng.random((64, n)) < 0.7, rng.uniform(-1, 1, 64))
+    torch.cuda.synchronize()
+    if not mirror.full or not np.array_equal(mirror.held(n),
+                                             pool.planes()[:, :n]):
+        fail(f"mirror n={n}: the first call did not hold the pool's planes")
+    limit = int(core_hlem.MIRROR_FULL_SHARE * n)
+    cases = (1, 2, 3, 0, limit, limit + 1)
+    for k in cases:
+        full = k > limit
+        want = planes_d().clone()
+        ids = rng.choice(n, k, replace=False).astype(np.int32)
+        for hid in ids:
+            write(int(hid))
+        src = np.empty((2, k, 4))
+        hk.mirror_gather_ref(src, pool.planes(), ids)
+        hk.mirror_scatter_ref(want, torch.from_numpy(src).to(dev),
+                              torch.from_numpy(ids).to(dev))
+        b = 64 if k == 2 else None
+        masks = rng.random(n if b is None else (b, n)) < 0.7
+        hk.SCATTERS = 0
+        mirror.stage(pool, masks, None if b is None
+                     else rng.uniform(-1, 1, b))
+        torch.cuda.synchronize()
+        if (mirror.full != full or mirror.rows_sent != (0 if full else k)
+                or hk.SCATTERS != 1):
+            fail(f"mirror n={n} k={k}: full={mirror.full}, "
+                 f"{mirror.rows_sent} rows sent, {hk.SCATTERS} scatter "
+                 f"launches (expected full={full}, one launch)")
+        if int(mirror.bufs.done_np[0]) != mirror.bufs.ticket:
+            fail(f"mirror n={n} k={k}: the scatter did not store its ticket")
+        # bits, as rows past n hold whatever the buffer held (NaN too); a
+        # full upload writes them too, so it is held to the first n
+        m = n if full else rows
+        got_bits = planes_d()[:, :m].view(torch.int64)
+        want_bits = want[:, :m].view(torch.int64)
+        if not torch.equal(got_bits, want_bits):
+            bad = int((got_bits != want_bits).any(dim=2).sum())
+            fail(f"mirror n={n} k={k}: {bad} rows differ from "
+                 "mirror_scatter_ref on the planes before the call")
+        if not np.array_equal(mirror.held(n), pool.planes()[:, :n]):
+            fail(f"mirror n={n} k={k}: the planes differ from the pool's")
+    pool.check_invariants()
+    return len(cases)
+
+
 def attention_bound(q, k, causal, window):
     """Least time for one attention call: q, k, v read and o written once at
     the HBM rate, against 4*dh flops (QK^T and PV) per unmasked (q, k) pair
@@ -1887,6 +2013,27 @@ def main() -> int:
           f"{statistics.median(t_stage) * 1e6:.1f} us on the host clock; its "
           f"{nbytes} B pinned->device copy {copy_ms * 1e3:.1f} us on the "
           f"device ({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); median of 100")
+    # the whole fleet against the pool's device mirror, with the rows a
+    # placement and a release write, and with MIRROR_FULL_SHARE of the fleet
+    for n in (170, 1_000, 4_000, N_CLUSTER):
+        us, mbytes = staging_paths(torch, core_hlem, HostPool, n)
+        print(f"[time] staging paths n={n}: whole fleet {us['full']:.1f} us, "
+              f"mirror with 2 changed rows {us['mirror']:.1f} us ({mbytes} B) "
+              f"a call on the host clock, medians of 300")
+    rows = int(core_hlem.MIRROR_FULL_SHARE * N_CLUSTER)   # the most a delta
+    us, mbytes = staging_paths(torch, core_hlem, HostPool, N_CLUSTER,
+                               calls=60, rows=rows)
+    print(f"[time] staging paths n={N_CLUSTER}: whole fleet "
+          f"{us['full']:.1f} us, mirror with {rows} changed rows "
+          f"{us['mirror']:.1f} us ({mbytes} B) a call on the host clock, "
+          f"medians of 60")
+    checked = sum(check_mirror_upload(torch, core_hlem, hk, HostPool,
+                                      make_spot, resources, n)
+                  for n in (170, N_CLUSTER))
+    print(f"[check] fleet_mirror_scatter == mirror_scatter_ref on the planes "
+          f"before each call, bit for bit, at n = 170 and {N_CLUSTER} "
+          f"({checked} calls: k = 1, 2 at B = 64, 3, 0 and n/16 changed "
+          f"rows as deltas, n/16 + 1 as a full upload), one launch a call")
 
     phase("HLEM timing and staging")
 
@@ -1939,11 +2086,25 @@ def main() -> int:
         return sim, metrics, policy, time.perf_counter() - t0
 
     # the main path: counts set to 0 just before, read just after
-    hk.LAUNCHES = 0
+    hk.LAUNCHES = hk.SCATTERS = 0
     sim, metrics, policy, wall = run_cluster("torch")
-    sim_launches = hk.LAUNCHES
+    sim_launches, sim_scatters = hk.LAUNCHES, hk.SCATTERS
+    mirror = sim.pool.mirror
+    mirror_delta = mirror is not None and not mirror.full
+    sim.pool.check_invariants()   # the mirror outside the log, one D2H
     batch_hosts = policy.find_hosts_batch(spot_vms, sim.pool, horizon)
     batch_launches = hk.LAUNCHES - sim_launches
+    batch_scatters = hk.SCATTERS - sim_scatters
+    print(f"[check] cluster trace: {sim_scatters} fleet_mirror_scatter "
+          f"launches for {sim_launches} scoring calls, {batch_scatters} for "
+          f"find_hosts_batch's {batch_launches}; the pool's mirror took the "
+          f"last call's rows as a delta: {mirror_delta}")
+    if (sim_scatters, batch_scatters) != (sim_launches, batch_launches):
+        fail("cluster trace: the upload's scatter did not run once a "
+             "scoring call on the main path")
+    if not (isinstance(mirror, core_hlem._FleetMirror) and mirror_delta):
+        fail("cluster trace: the main path did not stage through the pool's "
+             "device mirror")
     cstats = trace_stats(sim, metrics)
     alloc = max(metrics.allocations, 1)
     print(f"[cluster] torch/cuda: wall {wall:.2f} s, allocations "

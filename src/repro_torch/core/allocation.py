@@ -297,7 +297,8 @@ class HlemVmp(AllocationPolicy):
     Phases 2–3 score candidates with entropy weights and pick the max.
 
     ``backend="torch"`` (the default) scores the full fleet in float64 on
-    ``device`` (default ``"cuda"``: the hand-written kernel; ``"cpu"``: its
+    ``device`` (default ``"cuda"``: the hand-written kernel, reading the
+    pool's device mirror; ``"cpu"``: its
     plain PyTorch version); ``backend="numpy"`` runs the float64 oracle on
     the compressed candidate set.  Both compute the float64 math of the
     reference's default (numpy) scorer.  A CUDA device without a card
@@ -341,9 +342,9 @@ class HlemVmp(AllocationPolicy):
             if tr.enabled:
                 return hlem_select_torch_traced(
                     tr, self._span_args, free, mask, spot_frac, alpha,
-                    self.device)
+                    self.device, pool)
             return hlem_select_torch(free, mask, spot_frac, alpha,
-                                     self.device)
+                                     self.device, pool)
         return hlem_pick_np(free, mask, spot_frac, alpha)
 
     def _pick_direct(self, mask, vm, pool):
@@ -454,10 +455,11 @@ class HlemVmp(AllocationPolicy):
             if tr.enabled:
                 out[rows] = hlem_select_batch_torch_traced(
                     tr, self._span_args, pool.free(), masks,
-                    pool.spot_frac_view(), alphas, self.device)
+                    pool.spot_frac_view(), alphas, self.device, pool)
                 return out
             out[rows] = hlem_select_batch_torch(
-                pool.free(), masks, pool.spot_frac_view(), alphas, self.device)
+                pool.free(), masks, pool.spot_frac_view(), alphas, self.device,
+                pool)
             return out
         scores = hlem_scores_batch_np(
             pool.free(), masks, pool.spot_frac_view(), alphas)

@@ -36,7 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..kernels import ops
+from ..kernels import hlem_score as hk, ops
 
 _EPS = 1e-12
 
@@ -290,64 +290,212 @@ def _align16(nbytes: int) -> int:
     return (nbytes + 15) & ~15
 
 
-class _DeviceWorkspace:
-    """Pinned host staging and device buffers for the torch scorers.
+#: a call whose changed rows are more than this share of the fleet sends the
+#: whole fleet: each changed row costs the host ~0.1-0.2 us (its id handed
+#: over, its flag cleared, its gather), the whole fleet one copy.  Host time
+#: a call on an H100's host, medians of 60, two runs: the delta is cheaper
+#: up to k = 500 of 12,583 rows and dearer from 1,250 (mixed at 750-1,000),
+#: cheaper to 200 of 4,000 and dearer from 400, dearer from 50-100 of 1,000,
+#: cheaper to 10 of 170 and even at 20 (PERF.md, Findings).
+MIRROR_FULL_SHARE = 1 / 16
 
-    The policy layer's host state is numpy float64; each scoring call
-    copies it into one pinned buffer and moves it to the device in ONE
-    host-to-device copy.  Layout (byte offsets, 16-aligned for the kernel's
-    16-byte copies): free (n, D) f64 | spot_frac (n, D) f64 | alphas (B,)
-    f64 | masks (B, n) u8.  Buffers grow with the fleet and the batch and
-    are never shrunk, so the hot path allocates nothing."""
+
+class _Staging:
+    """A host and a device byte buffer with one layout
+    (``kernels.hlem_score.UploadBuffers``; pinned host memory on a card): a
+    scoring call packs its inputs into the host bytes and hands a range of
+    them to the card in ONE asynchronous copy (``ops.hlem_upload``).  Byte
+    offsets are 16-aligned for the kernel's 16-byte copies.  The buffers
+    grow and are never shrunk, and the views of them are kept per shape, so
+    a call allocates nothing and builds no tensor view."""
+
+    #: at most this many shapes' views are kept
+    MAX_VIEWS = 64
 
     def __init__(self, device: torch.device):
         self.device = device
         self.cap = 0
-        self.nbytes = 0     # bytes staged by the last call
-        self.copied: Optional[torch.cuda.Event] = None
+        self.bufs: Optional[hk.UploadBuffers] = None
+        self.nbytes = 0      # bytes handed to the card by the last call
+        self.rows_sent = 0   # changed rows among them (a mirror's delta)
+        self.full = True     # the last call sent the whole fleet
+        self.views: Dict[tuple, tuple] = {}
 
-    def _ensure(self, nbytes: int) -> None:
+    def _ensure(self, nbytes: int) -> bool:
+        """Room for ``nbytes``; True when the buffers were replaced (what
+        the device buffer held is gone, and so are the cached views)."""
         if nbytes <= self.cap:
-            return
-        cap = max(nbytes, self.cap * 2, 1 << 16)
-        if self.copied is not None:
-            self.copied.synchronize()   # the old pinned buffer may be in flight
-        self.host = torch.empty(cap, dtype=torch.uint8, pin_memory=True)
-        self.host_np = self.host.numpy()
-        self.dev = torch.empty(cap, dtype=torch.uint8, device=self.device)
+            return False
+        self._wait()   # the old host buffer may be in flight
+        cap = _align16(max(nbytes, self.cap * 2, 1 << 16))
+        self.bufs = hk.UploadBuffers(cap, self.device)
         self.cap = cap
+        self.host = self.bufs.host
+        self.host_np = self.host.numpy()
+        self.host_f64 = self.host_np.view(np.float64)
+        self.host_i32 = self.host_np.view(np.int32)
+        self.dev = self.bufs.dev
+        self.views.clear()
+        return True
+
+    def _wait(self) -> None:
+        """Wait until the last call's copy has read the host bytes."""
+        if self.bufs is not None:
+            self.bufs.wait()
+
+    def _upload(self, lo: int, hi: int, rows: int = 0, d: int = 0,
+                o_src: int = 0, o_ids: int = 0, k: int = 0,
+                planes=None) -> None:
+        ops.hlem_upload(self.bufs, lo, hi, rows, d, o_src, o_ids, k, planes)
+        self.nbytes = hi - lo
+
+    def _remember(self, key: tuple, views: tuple) -> tuple:
+        if len(self.views) >= self.MAX_VIEWS:
+            self.views.clear()
+        self.views[key] = views
+        return views
+
+    def _call_views(self, o: int, n: int, mshape: tuple, b: int,
+                    with_alphas: bool):
+        """Host (numpy) and device views of a call's alphas (B,) f64 at byte
+        ``o`` and masks (``mshape``: (n,) or (B, n)) u8 after them; the byte
+        after the masks."""
+        o_mask = o + _align16(b * 8)
+        end = o_mask + b * n
+        h, v = self.host_np, self.dev
+        return (None if not with_alphas else h[o:o + b * 8].view(np.float64),
+                h[o_mask:end].reshape(mshape),
+                None if not with_alphas
+                else v[o:o + b * 8].view(torch.float64),
+                v[o_mask:end].view(mshape), end)
+
+
+class _DeviceWorkspace(_Staging):
+    """The whole fleet at each call, one workspace a device.  Layout: free
+    (n, D) f64 | spot_frac (n, D) f64 | alphas (B,) f64 | masks u8."""
 
     def stage(self, free, masks, spot_frac, alphas):
         n, d = free.shape
-        b = masks.shape[0]
-        nf = n * d * 8
-        o_spot = _align16(nf)
-        o_alpha = o_spot + _align16(nf)
-        o_mask = o_alpha + _align16(b * 8)
-        total = self.nbytes = o_mask + b * n
-        self._ensure(total)
-        if self.copied is not None:
-            # the previous call's copy may still read the pinned buffer
-            self.copied.synchronize()
-        h = self.host_np
-        np.copyto(h[:nf].view(np.float64).reshape(n, d), free)
-        np.copyto(h[o_spot:o_spot + nf].view(np.float64).reshape(n, d),
-                  spot_frac)
+        key = (n, d, masks.shape, alphas is not None)
+        vw = self.views.get(key)
+        if vw is None:
+            nf = n * d * 8
+            o_spot = _align16(nf)
+            o_alpha = o_spot + _align16(nf)
+            b = masks.shape[0] if masks.ndim == 2 else 1
+            self._ensure(o_alpha + _align16(b * 8) + b * n)
+            h, v = self.host_np, self.dev
+            h_alpha, h_mask, d_alpha, d_mask, total = self._call_views(
+                o_alpha, n, masks.shape, b, alphas is not None)
+            vw = self._remember(key, (
+                h[:nf].view(np.float64).reshape(n, d),
+                h[o_spot:o_spot + nf].view(np.float64).reshape(n, d),
+                h_alpha, h_mask, total,
+                (v[:nf].view(torch.float64).view(n, d), d_mask,
+                 v[o_spot:o_spot + nf].view(torch.float64).view(n, d),
+                 d_alpha)))
+        h_free, h_spot, h_alpha, h_mask, total, out = vw
+        self._wait()
+        np.copyto(h_free, free)
+        np.copyto(h_spot, spot_frac)
         if alphas is not None:
-            np.copyto(h[o_alpha:o_alpha + b * 8].view(np.float64), alphas)
-        np.copyto(h[o_mask:total].reshape(b, n), masks)
-        self.dev[:total].copy_(self.host[:total], non_blocking=True)
-        self.copied = torch.cuda.Event()
-        self.copied.record(torch.cuda.current_stream(self.device))
-        v = self.dev
-        return (v[:nf].view(torch.float64).view(n, d),
-                v[o_mask:total].view(b, n),
-                v[o_spot:o_spot + nf].view(torch.float64).view(n, d),
-                None if alphas is None
-                else v[o_alpha:o_alpha + b * 8].view(torch.float64))
+            np.copyto(h_alpha, alphas)
+        np.copyto(h_mask, masks)
+        self._upload(0, total)
+        self.rows_sent, self.full = 0, True
+        return out
+
+
+class _FleetMirror(_Staging):
+    """A pool's ``free`` and ``spot_frac`` rows kept on the card between
+    scoring calls; one a pool (``HostPool.mirror``), so it dies with it.
+    Layout: planes (2, rows, D) f64 (``HostPool.planes``: free, then spot
+    fraction; rows the pool's capacity) | alphas (B,) f64 | masks u8 |
+    changed rows (2, k, D) f64 | their ids (k,) i32.  A call packs its mask,
+    alphas and the ids of the rows the pool wrote since the last call
+    (``HostPool.take_changed``); the upload gathers those rows beside them,
+    copied bits, hands everything over in one copy and writes the rows into
+    the planes with one scatter launch.  The first call, the first after
+    the pool grew or the buffers were replaced, and a call with more changed
+    rows than ``MIRROR_FULL_SHARE`` of the fleet send both planes whole
+    instead."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self.rows = 0      # rows of each plane the device holds; 0: none
+        self.d = 0
+
+    def stage(self, pool, masks, alphas):
+        planes = pool.planes()
+        _, rows, d = planes.shape
+        n = pool.n
+        # nothing is held until this call's upload is made: a call that
+        # raises before it leaves the next one a full upload
+        held_rows, self.rows = self.rows, 0
+        key = (rows, n, d, masks.shape, alphas is not None)
+        vw = self.views.get(key)
+        replaced = False
+        if vw is None:
+            b = masks.shape[0] if masks.ndim == 2 else 1
+            o_call = 16 * rows * d
+            o_src = _align16(o_call + _align16(b * 8) + b * n)
+            replaced = self._ensure(
+                o_src + int(MIRROR_FULL_SHARE * n) * (16 * d + 4))
+            h_alpha, h_mask, d_alpha, d_mask, _ = self._call_views(
+                o_call, n, masks.shape, b, alphas is not None)
+            held = self.dev[:o_call].view(torch.float64).view(2, rows, d)
+            vw = self._remember(key, (o_call, o_src, h_alpha, h_mask, (
+                held[0, :n], d_mask, held[1, :n], d_alpha)))
+        o_call, o_src, h_alpha, h_mask, out = vw
+        self._wait()
+        if alphas is not None:
+            np.copyto(h_alpha, alphas)
+        np.copyto(h_mask, masks)
+        changed = pool.take_changed()
+        full = (changed is None or replaced or rows != held_rows
+                or len(changed) > MIRROR_FULL_SHARE * n)
+        k = 0 if full else len(changed)
+        if full:
+            np.copyto(self.host_f64[:2 * rows * d].reshape(2, rows, d)[:, :n],
+                      planes[:, :n])
+            self._upload(0, o_src)
+        elif k:
+            o_ids = o_src + 16 * k * d
+            self.host_i32[o_ids >> 2:(o_ids >> 2) + k] = changed
+            # the upload gathers the rows beside the ids
+            self._upload(o_call, o_ids + 4 * k, rows, d, o_src, o_ids, k,
+                         planes)
+        else:
+            self._upload(o_call, o_src)
+        self.rows, self.d = rows, d
+        self.rows_sent, self.full = k, full
+        return out
+
+    def held(self, n: int) -> Optional[np.ndarray]:
+        """(2, m, D): the device's rows of the two planes, m = min(n, the
+        rows held), read back in one copy; None before the first upload."""
+        if self.rows == 0:
+            return None
+        m = min(n, self.rows)
+        v = self.dev[:16 * self.rows * self.d].view(torch.float64)
+        return v.view(2, self.rows, self.d)[:, :m].cpu().numpy()
 
 
 _DEVICE_WS: Dict[torch.device, _DeviceWorkspace] = {}
+
+
+def _stager(device: torch.device, pool) -> _Staging:
+    """What stages a call on the CUDA ``device``: the pool's mirror where
+    the call brings a pool, else the device's shared workspace."""
+    if pool is not None:
+        mirror = pool.mirror
+        if mirror is None or mirror.device != device:
+            mirror = pool.mirror = _FleetMirror(device)
+        return mirror
+    ws = _DEVICE_WS.get(device)
+    if ws is None:
+        ws = _DEVICE_WS[device] = _DeviceWorkspace(device)
+    return ws
 
 
 def resolve_device(device) -> torch.device:
@@ -365,24 +513,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def stage_to_device(device, free, masks, spot_frac, alphas=None):
-    """Host state (numpy) -> float64 ``free`` (n, D), (B, n) ``masks``,
-    float64 ``spot_frac`` (n, D) and, if given, float64 (B,) ``alphas`` on
-    ``device``.
+def stage_to_device(device, free, masks, spot_frac, alphas=None, pool=None):
+    """Host state (numpy) -> float64 ``free`` (n, D), ``masks`` ((n,) or
+    (B, n), as given), float64 ``spot_frac`` (n, D) and, if given, float64
+    (B,) ``alphas`` on ``device``.  ``pool``, where given, is the
+    ``HostPool`` whose ``free()`` and ``spot_frac_view()`` these are: on a
+    card the call then stages through the pool's device mirror, which takes
+    only the rows written since the last call.  Without a pool each call
+    copies the whole fleet.
 
-    On a CUDA device the returned tensors are views of a reused workspace:
+    On a CUDA device the returned tensors are views of reused buffers:
     valid until the next call, so consume (or clone) them first."""
-    device = resolve_device(device)
+    if not (isinstance(device, torch.device) and device.index is not None):
+        device = resolve_device(device)     # the policies hand it resolved
     if device.type == "cpu":
         return (torch.from_numpy(np.asarray(free, dtype=np.float64)),
                 torch.from_numpy(np.asarray(masks, dtype=bool)),
                 torch.from_numpy(np.asarray(spot_frac, dtype=np.float64)),
                 None if alphas is None
                 else torch.from_numpy(np.asarray(alphas, dtype=np.float64)))
-    ws = _DEVICE_WS.get(device)
-    if ws is None:
-        ws = _DEVICE_WS[device] = _DeviceWorkspace(device)
-    return ws.stage(free, masks, spot_frac, alphas)
+    st = _stager(device, pool)
+    if isinstance(st, _FleetMirror):
+        return st.stage(pool, masks, alphas)
+    return st.stage(free, masks, spot_frac, alphas)
 
 
 def hlem_scores_torch(
@@ -391,21 +544,23 @@ def hlem_scores_torch(
     spot_frac: np.ndarray,     # (n, D)
     alpha: float,
     device="cuda",
+    pool=None,                 # the HostPool of free and spot_frac, if any
 ) -> torch.Tensor:             # (n,) float64 on ``device``
     """The math of ``hlem_scores_np`` in float64 on ``device``; -3.4e38
     where the mask is False."""
-    free_d, masks_d, spot_d, _ = stage_to_device(
-        device, free, np.asarray(mask, dtype=bool)[None], spot_frac)
-    return ops.hlem_score(free_d, masks_d[0], spot_d, float(alpha))
+    free_d, mask_d, spot_d, _ = stage_to_device(
+        device, free, np.asarray(mask, dtype=bool), spot_frac, pool=pool)
+    return ops.hlem_score(free_d, mask_d, spot_d, float(alpha))
 
 
-def hlem_select_torch(free, mask, spot_frac, alpha, device="cuda") -> int:
+def hlem_select_torch(free, mask, spot_frac, alpha, device="cuda",
+                      pool=None) -> int:
     """argmax host id of ``hlem_scores_torch``, or -1 if no candidate."""
     mask = np.asarray(mask, dtype=bool)
     if not mask.any():
         return -1
     return int(torch.argmax(
-        hlem_scores_torch(free, mask, spot_frac, alpha, device)))
+        hlem_scores_torch(free, mask, spot_frac, alpha, device, pool)))
 
 
 # Batched variants: score B pending VM demands against the same host state in
@@ -417,11 +572,12 @@ def hlem_scores_batch_torch(
     spot_frac: np.ndarray,   # (n, D)
     alphas,                  # (B,) per-VM adjustment, or one scalar for all
     device="cuda",
+    pool=None,               # the HostPool of free and spot_frac, if any
 ) -> torch.Tensor:           # (B, n) scores, -3.4e38 outside each row's mask
     masks = np.asarray(masks, dtype=bool)
     alphas = np.full(masks.shape[0], alphas, dtype=np.float64)
     free_d, masks_d, spot_d, alphas_d = stage_to_device(
-        device, free, masks, spot_frac, alphas)
+        device, free, masks, spot_frac, alphas, pool)
     return ops.hlem_score_batch(free_d, masks_d, spot_d, alphas_d)
 
 
@@ -431,30 +587,42 @@ def hlem_select_batch_torch(
     spot_frac: np.ndarray,   # (n, D)
     alpha,                   # (B,) or one scalar for all rows
     device="cuda",
+    pool=None,               # the HostPool of free and spot_frac, if any
 ) -> np.ndarray:             # (B,) selected host per VM, -1 for an empty row
     masks = np.asarray(masks, dtype=bool)
-    idx = torch.argmax(
-        hlem_scores_batch_torch(free, masks, spot_frac, alpha, device), dim=1)
+    idx = torch.argmax(hlem_scores_batch_torch(free, masks, spot_frac, alpha,
+                                               device, pool), dim=1)
     return np.where(masks.any(axis=1), idx.cpu().numpy(), -1)
 
 
 # Traced twins of the two selections, chosen by the policy once per call when
 # its tracer is enabled (the untraced path runs the functions above as they
 # are): the same calls, split into ``policy/stage`` (``stage_to_device``: the
-# wait on the previous copy, the copy into pinned memory, the enqueued H2D and
-# the views), ``policy/launch`` (``kernels.ops`` to the kernel's launch) and
-# ``policy/select`` (the argmax and the host's read of the pick: the D2H and
-# the wait for the kernel), with counters ``hlem/calls`` (scoring calls: one
-# kernel launch each on the card) and ``hlem/staged_bytes`` (the
-# workspace's bytes on the card; on the CPU the arrays handed over).
-def _staged_bytes(device: torch.device, *tensors) -> int:
+# wait on the previous copy, the packing into pinned memory, the enqueued H2D
+# and, through a pool's mirror, the scatter of changed rows), ``policy/launch``
+# (``kernels.ops`` to the kernel's launch) and ``policy/select`` (the argmax
+# and the host's read of the pick: the D2H and the wait for the kernel), with
+# counters ``hlem/calls`` (scoring calls: one kernel launch each on the card),
+# ``hlem/staged_bytes`` (the bytes handed to the card; on the CPU the arrays
+# handed over), ``hlem/rows_uploaded`` (changed rows a mirror sent) and
+# ``hlem/full_uploads`` (calls that sent the whole fleet).
+def _count_staging(tr, device: torch.device, pool, *tensors) -> None:
+    inc = tr.counters.inc
+    inc("hlem/calls")
     if device.type == "cpu":
-        return sum(t.nbytes for t in tensors if t is not None)
-    return _DEVICE_WS[device].nbytes
+        inc("hlem/staged_bytes", sum(t.nbytes for t in tensors
+                                     if t is not None))
+        inc("hlem/rows_uploaded", 0)
+        inc("hlem/full_uploads")
+        return
+    st = _stager(device, pool)
+    inc("hlem/staged_bytes", st.nbytes)
+    inc("hlem/rows_uploaded", st.rows_sent)
+    inc("hlem/full_uploads", int(st.full))
 
 
 def hlem_select_torch_traced(tracer, args, free, mask, spot_frac, alpha,
-                             device="cuda") -> int:
+                             device="cuda", pool=None) -> int:
     """:func:`hlem_select_torch` in the tracer's spans (``args`` their
     args) and counters."""
     mask = np.asarray(mask, dtype=bool)
@@ -463,23 +631,22 @@ def hlem_select_torch_traced(tracer, args, free, mask, spot_frac, alpha,
     tr = tracer
     device = resolve_device(device)
     tr.begin("policy", "policy/stage")
-    free_d, masks_d, spot_d, _ = stage_to_device(device, free, mask[None],
-                                                 spot_frac)
+    free_d, mask_d, spot_d, _ = stage_to_device(device, free, mask,
+                                                spot_frac, pool=pool)
     tr.end(tr.sim_t, args)
     tr.begin("policy", "policy/launch")
-    scores = ops.hlem_score(free_d, masks_d[0], spot_d, float(alpha))
+    scores = ops.hlem_score(free_d, mask_d, spot_d, float(alpha))
     tr.end(tr.sim_t, args)
     tr.begin("policy", "policy/select")
     hid = int(torch.argmax(scores))
     tr.end(tr.sim_t, args)
-    inc = tr.counters.inc
-    inc("hlem/calls")
-    inc("hlem/staged_bytes", _staged_bytes(device, free_d, masks_d, spot_d))
+    _count_staging(tr, device, pool, free_d, mask_d, spot_d)
     return hid
 
 
 def hlem_select_batch_torch_traced(tracer, args, free, masks, spot_frac,
-                                   alpha, device="cuda") -> np.ndarray:
+                                   alpha, device="cuda",
+                                   pool=None) -> np.ndarray:
     """:func:`hlem_select_batch_torch` in the tracer's spans (``args``
     their args) and counters."""
     tr = tracer
@@ -488,7 +655,7 @@ def hlem_select_batch_torch_traced(tracer, args, free, masks, spot_frac,
     masks = np.asarray(masks, dtype=bool)
     alphas = np.full(masks.shape[0], alpha, dtype=np.float64)
     free_d, masks_d, spot_d, alphas_d = stage_to_device(
-        device, free, masks, spot_frac, alphas)
+        device, free, masks, spot_frac, alphas, pool)
     tr.end(tr.sim_t, args)
     tr.begin("policy", "policy/launch")
     scores = ops.hlem_score_batch(free_d, masks_d, spot_d, alphas_d)
@@ -497,10 +664,7 @@ def hlem_select_batch_torch_traced(tracer, args, free, masks, spot_frac,
     out = np.where(masks.any(axis=1),
                    torch.argmax(scores, dim=1).cpu().numpy(), -1)
     tr.end(tr.sim_t, args)
-    inc = tr.counters.inc
-    inc("hlem/calls")
-    inc("hlem/staged_bytes",
-        _staged_bytes(device, free_d, masks_d, spot_d, alphas_d))
+    _count_staging(tr, device, pool, free_d, masks_d, spot_d, alphas_d)
     return out
 
 

@@ -42,6 +42,15 @@ Market mode (price-driven engine; see ``repro.market.engine``):
 Contract: a spot VM's ``min_running_time`` must be set **before** it is
 placed; the reclaim index snapshots it at placement time.
 
+Device mirror (``core/hlem.py``): a pool scored on a card keeps its ``free``
+and ``spot_frac`` rows there between scoring calls (``mirror``), and each
+call brings over only the rows written since the last.  ``_refresh_row`` is
+the only writer of those rows after a host is added, so it keeps the log of
+changed rows that the mirror reads (:meth:`take_changed`): a flag a row and
+the rows in order of first write, each at most once, so the log never
+outgrows the pool whether or not it is read.  ``_grow`` marks every row
+stale.
+
 Every mutation bumps ``epoch``; ``check_invariants`` cross-checks all cached
 arrays against from-scratch recomputation.
 """
@@ -74,13 +83,16 @@ class HostPool:
         self.residents: List[Dict[int, Vm]] = [dict() for _ in range(n)]
         # -- incremental caches (epoch-stamped) ------------------------------
         self.epoch = 0
+        #: the free and spot_frac caches below, one plane each, in the layout
+        #: of the device mirror's planes
+        self._planes = np.zeros((2, n, N_DIMS), dtype=np.float64)
         #: total - used where active, 0 elsewhere; updated row-wise in place
-        self._free = np.zeros((n, N_DIMS), dtype=np.float64)
+        self._free = self._planes[0]
         #: ``_free`` transposed, bit for bit: the masks compare each
         #: dimension's contiguous row and reduce over the short leading axis
         self._free_t = np.zeros((N_DIMS, n), dtype=np.float64)
         #: spot_used / max(total, 1e-9) per (host, dim)
-        self._spot_frac = np.zeros((n, N_DIMS), dtype=np.float64)
+        self._spot_frac = self._planes[1]
         #: max(total, 1e-9) — the spot_frac denominator, refreshed only when
         #: capacity changes (place/release divide by the cached row)
         self._tot_clamped = np.full((n, N_DIMS), _EPS, dtype=np.float64)
@@ -107,6 +119,17 @@ class HostPool:
         self._scratch_row2 = np.zeros(n, dtype=bool)
         self._scratch_sum = np.zeros((N_DIMS, n), dtype=np.float64)
         self._scratch_dm = np.zeros(N_DIMS, dtype=np.float64)
+        # -- the log of rows written for the device mirror -------------------
+        #: row written since the last :meth:`take_changed`
+        self._changed = np.zeros(n, dtype=bool)
+        #: those rows, in order of first write, each once
+        self._changed_rows: List[int] = []
+        #: every row is stale (a new pool, or one that grew)
+        self._changed_all = True
+        #: the device copy of ``free`` and ``spot_frac`` that the scorer keeps
+        #: (``core/hlem.py`` ``_FleetMirror``), made by the first scoring call
+        #: on a card; it dies with the pool
+        self.mirror = None
         # -- market state (inert until enable_market) ------------------------
         #: capacity pool each host belongs to (region / instance class)
         self.pool_of = np.zeros(n, dtype=np.int64)
@@ -158,10 +181,12 @@ class HostPool:
         self.spot_used = vpad(self.spot_used)
         self.active = np.concatenate([self.active, np.zeros(pad, dtype=bool)])
         self.residents.extend(dict() for _ in range(pad))
-        self._free = vpad(self._free)
+        self._planes = np.concatenate(
+            [self._planes, np.zeros((2, pad, N_DIMS), dtype=np.float64)],
+            axis=1)
+        self._free, self._spot_frac = self._planes
         self._free_t = np.hstack(
             [self._free_t, np.zeros((N_DIMS, pad), dtype=np.float64)])
-        self._spot_frac = vpad(self._spot_frac)
         self._tot_clamped = vpad(self._tot_clamped, _EPS)
         self._rs_tot_cpu = np.concatenate(
             [self._rs_tot_cpu, np.full(pad, _EPS_RS, dtype=np.float64)])
@@ -172,6 +197,9 @@ class HostPool:
         self._scratch_row = np.zeros(new_cap, dtype=bool)
         self._scratch_row2 = np.zeros(new_cap, dtype=bool)
         self._scratch_sum = np.zeros((N_DIMS, new_cap), dtype=np.float64)
+        self._changed = np.concatenate([self._changed,
+                                        np.zeros(pad, dtype=bool)])
+        self._changed_all = True
         self.pool_of = np.concatenate(
             [self.pool_of, np.zeros(pad, dtype=np.int64)])
         self._host_price = np.concatenate(
@@ -195,6 +223,24 @@ class HostPool:
             np.divide(self.spot_used[hid], self._tot_clamped[hid],
                       out=self._spot_frac[hid])
         self._rs_util_cpu[hid] = self.used[hid, 0] / self._rs_tot_cpu[hid]
+        if not self._changed[hid]:
+            self._changed[hid] = True
+            self._changed_rows.append(hid)
+
+    def take_changed(self) -> Optional[List[int]]:
+        """The rows whose ``free`` or ``spot_frac`` were written since the
+        last call, in order of first write, each once; None when every row
+        is stale (the first call, or the pool grew).  Empties the log."""
+        rows = None if self._changed_all else self._changed_rows
+        if self._changed_all:
+            self._changed.fill(False)
+        else:
+            flags = self._changed
+            for hid in rows:
+                flags[hid] = False
+        self._changed_rows = []
+        self._changed_all = False
+        return rows
 
     def _log_gain(self, hid: int) -> None:
         if self.active[hid]:
@@ -265,6 +311,12 @@ class HostPool:
     def spot_frac_view(self) -> np.ndarray:
         """(n_hosts, 4) spot_used / total (cached)."""
         return self._spot_frac[: self.n]
+
+    def planes(self) -> np.ndarray:
+        """(2, capacity, 4): :meth:`free` and :meth:`spot_frac_view` over
+        the pool's whole capacity (rows from ``n`` on are 0), one contiguous
+        array (cached; do not mutate)."""
+        return self._planes
 
     def totals(self) -> np.ndarray:
         return self.total[: self.n]
@@ -740,6 +792,21 @@ class HostPool:
         sf = self.spot_used[:n] / np.maximum(self.total[:n], _EPS)
         assert np.allclose(sf, self._spot_frac[:n], atol=1e-12), (
             "stale spot_frac cache")
+        # the change log, and the device mirror outside it (one D2H copy)
+        assert len(self._changed_rows) <= n
+        assert len(set(self._changed_rows)) == len(self._changed_rows)
+        assert np.array_equal(np.flatnonzero(self._changed),
+                              np.sort(np.asarray(self._changed_rows, int)))
+        held = None if self.mirror is None else self.mirror.held(n)
+        if held is not None and not self._changed_all:
+            m = held.shape[1]
+            keep = ~self._changed[:m]
+            assert self._changed[m:n].all(), (
+                "rows beyond the mirror's planes missing from the change log")
+            assert np.array_equal(held[0][keep], self._free[:m][keep]), (
+                "device mirror of free differs outside the change log")
+            assert np.array_equal(held[1][keep], self._spot_frac[:m][keep]), (
+                "device mirror of spot_frac differs outside the change log")
         tc = np.maximum(self.total[:n, 0], _EPS_RS)
         assert np.allclose(tc, self._rs_tot_cpu[:n])
         assert np.allclose(self.used[:n, 0] / tc, self._rs_util_cpu[:n])

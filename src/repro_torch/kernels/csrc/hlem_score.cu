@@ -59,11 +59,16 @@
 // when sum(g) <= 1e-12; masked hosts score -3.4e38.  D comes from the shape
 // (the TPU kernel fixed d_real = 4, which only differs when D < 4).
 //
+// The library also carries each scoring call's upload (hlem_mirror_upload,
+// at the end): one copy of the call's pinned inputs and the gather and
+// scatter of the changed rows of a pool's device mirror.
+//
 // Plain C interface, loaded with ctypes; launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace cg = cooperative_groups;
 
@@ -430,6 +435,34 @@ int launch_d(const double* free_cap, const uint8_t* masks, const double* spot,
                                  out, n, b, stream);
 }
 
+// The last step of each scoring call's upload (hlem_mirror_upload, below).
+// The device mirror of a host pool (core/hlem.py, _FleetMirror) keeps the
+// pool's free capacity and spot fraction on the card between scoring calls;
+// a call brings over only the rows the host wrote since the last one.  This
+// kernel writes them in: planes (2, rows, d) f64, free then spot; src
+// (2, k, d) f64, the changed rows of each plane in the order of ids (k,)
+// i32 (k may be 0).  Then it stores `ticket` to `done`, a word of pinned
+// host memory: the upload's copy, which ran before it on the stream, has
+// read the pinned bytes, so the host may write them again without a CUDA
+// call to ask.  It replaces no TPU kernel (the TPU path staged the whole
+// fleet).  It copies bits and computes nothing: a few hundred bytes a call,
+// so its launch is its cost.  One thread an element.
+__global__ void fleet_mirror_scatter(double* __restrict__ planes,
+                                     long long rows,
+                                     const double* __restrict__ src,
+                                     const int* __restrict__ ids, int k,
+                                     int d, volatile long long* done,
+                                     long long ticket) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e == 0) *done = ticket;
+  const int kd = k * d;
+  if (e >= 2 * kd) return;
+  const int p = e / kd;
+  const int r = (e - p * kd) / d;
+  const int j = e - p * kd - r * d;
+  planes[(p * rows + ids[r]) * d + j] = src[e];
+}
+
 }  // namespace
 
 // The number of CTAs in the cluster that scores one row of n hosts.
@@ -459,4 +492,48 @@ extern "C" int hlem_score_launch(const double* free_cap, const uint8_t* masks,
     case 7: return launch_d<7>(free_cap, masks, spot, alphas, alpha_all, out, n, b, s);
     default: return launch_d<8>(free_cap, masks, spot, alphas, alpha_all, out, n, b, s);
   }
+}
+
+// One scoring call's upload on `stream`, at byte offsets into the device
+// buffer `dev` and the pinned host buffer `host`, which share one layout:
+// when k > 0, first the gather on the host of the k changed rows of the
+// pool's planes `pool` (2, rows, d) f64 whose ids (i32) are at host[o_ids]
+// into host[o_src] as (2, k, d), copied bits; then the bytes [lo, hi) to
+// the card in one asynchronous copy; then one launch of
+// fleet_mirror_scatter, which writes the k rows into the mirror's planes
+// (2, rows, d) at dev[0] and stores `ticket` to `done` (pinned).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue (nothing done) for a range
+// or an id out of bounds.
+extern "C" int hlem_mirror_upload(uint8_t* dev, uint8_t* host, long long lo,
+                                  long long hi, long long rows, int d,
+                                  long long o_src, long long o_ids, int k,
+                                  const double* pool, long long* done,
+                                  long long ticket, void* stream) {
+  if (lo < 0 || hi < lo || k < 0 || done == nullptr ||
+      (k > 0 && (d < 1 || rows < 1 || pool == nullptr || o_src < lo ||
+                 o_ids != o_src + 16LL * k * d || o_ids + 4LL * k > hi ||
+                 2LL * k * d > 0x7fffffffLL)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* ids = reinterpret_cast<const int*>(host + o_ids);
+  double* src = reinterpret_cast<double*>(host + o_src);
+  for (int r = 0; r < k; ++r) {
+    if (ids[r] < 0 || ids[r] >= rows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int p = 0; p < 2; ++p)
+      memcpy(src + (static_cast<long long>(p) * k + r) * d,
+             pool + (p * rows + ids[r]) * d, sizeof(double) * d);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemcpyAsync(dev + lo, host + lo,
+                                          static_cast<size_t>(hi - lo),
+                                          cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kScatterThreads = 256;
+  const int blocks =
+      k > 0 ? (2 * k * d + kScatterThreads - 1) / kScatterThreads : 1;
+  fleet_mirror_scatter<<<blocks, kScatterThreads, 0, s>>>(
+      reinterpret_cast<double*>(dev), rows,
+      reinterpret_cast<const double*>(dev + o_src),
+      reinterpret_cast<const int*>(dev + o_ids), k, d, done, ticket);
+  return static_cast<int>(cudaGetLastError());
 }

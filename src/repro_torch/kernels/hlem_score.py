@@ -13,11 +13,20 @@ The wrappers take CUDA tensors only and raise on anything else; choosing
 between the kernel and the plain version by device is ``ops``' job.
 ``LAUNCHES`` counts the kernel's launches, so a run can show that its main
 path went through the kernel.
+
+The same library carries each scoring call's upload (``upload``): the
+gather of a pool's changed rows into the call's pinned host bytes, one copy
+of those bytes to the card, and the launch of a small kernel
+(``fleet_mirror_scatter``) that writes the rows into the pool's device
+mirror (``core/hlem.py``) and tells the host that the copy is done.
+``SCATTERS`` counts its launches; ``mirror_gather_ref`` and
+``mirror_scatter_ref`` are the plain versions of the two halves.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -28,6 +37,9 @@ MAX_DIMS = 8
 
 #: number of kernel launches since the last reset (set it to 0 to reset)
 LAUNCHES = 0
+#: number of the upload scatter's launches (one an upload) since the last
+#: reset
+SCATTERS = 0
 
 _LIB = None
 
@@ -111,6 +123,21 @@ def hlem_score_batch_ref(free: torch.Tensor, masks: torch.Tensor,
                         for b in range(masks.shape[0])])
 
 
+def mirror_gather_ref(src: np.ndarray, planes: np.ndarray,
+                      ids: np.ndarray) -> None:
+    """The upload's host half: the rows ``ids`` (k,) of a pool's planes
+    (2, rows, D) f64 into ``src`` (2, k, D), copied bits."""
+    np.take(planes, ids, axis=1, out=src, mode="clip")
+
+
+def mirror_scatter_ref(planes: torch.Tensor, src: torch.Tensor,
+                       ids: torch.Tensor) -> None:
+    """Write changed rows into a device mirror, in place: planes (2, rows,
+    D) f64 (free, then spot fraction), src (2, k, D) f64 the new rows of
+    each plane in the order of ids (k,) i32.  Copies bits."""
+    planes[:, ids.long()] = src
+
+
 # ---------------------------------------------------------------------------
 # the kernel's wrappers
 # ---------------------------------------------------------------------------
@@ -125,6 +152,13 @@ def _lib() -> ctypes.CDLL:
         lib.hlem_score_launch.restype = ctypes.c_int
         lib.hlem_score_cluster_size.argtypes = [ctypes.c_int]
         lib.hlem_score_cluster_size.restype = ctypes.c_int
+        lib.hlem_mirror_upload.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.hlem_mirror_upload.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -199,3 +233,85 @@ def hlem_score_batch(free: torch.Tensor, masks: torch.Tensor,
     if masks.dim() != 2:
         raise ValueError(f"masks must be (B, n), got shape {tuple(masks.shape)}")
     return _launch(free, masks, spot_frac, alphas, 0.0)
+
+
+class UploadBuffers:
+    """The byte buffers of a scoring call's upload: ``dev`` on ``device``
+    and ``host`` (pinned for a CUDA device) of one size and one layout.  On
+    a card also ``done``, a pinned word to which each upload's scatter
+    stores the upload's ``ticket`` once its copy has read the host bytes,
+    and the raw addresses the kernel path passes, read once."""
+
+    def __init__(self, nbytes: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.nbytes = nbytes
+        self.host = torch.empty(nbytes, dtype=torch.uint8,
+                                pin_memory=self.cuda)
+        self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.ticket = 0
+        if self.cuda:
+            self.done = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+            self.done_np = self.done.numpy()
+            self.addrs = (self.dev.data_ptr(), self.host.data_ptr(),
+                          self.done.data_ptr(), device.index)
+        self._source = self._source_addr = None
+
+    def wait(self) -> None:
+        """Until the last upload's copy has read the host bytes: at once
+        when its scatter has said so (after a pick read on the host, always),
+        else by a wait for the device, which also raises a fault of it."""
+        if self.cuda and self.done_np[0] != self.ticket:
+            torch.cuda.synchronize(self.device)
+
+    def source_addr(self, planes: np.ndarray) -> int:
+        """The address of ``planes``, a pool's rows, read once per array."""
+        if planes is not self._source:
+            if not (planes.dtype == np.float64 and planes.ndim == 3
+                    and planes.shape[0] == 2 and planes.flags.c_contiguous):
+                raise ValueError("planes must be C-contiguous f64 (2, rows, "
+                                 f"d), got {planes.dtype} {planes.shape}")
+            self._source = planes
+            self._source_addr = planes.__array_interface__["data"][0]
+        return self._source_addr
+
+
+def upload(bufs: UploadBuffers, lo: int, hi: int, rows: int, d: int,
+           o_src: int, o_ids: int, k: int, planes=None) -> None:
+    """Kernel path of a scoring call's upload, on the current stream, at
+    byte offsets into ``bufs``: for k > 0, ``mirror_gather_ref`` on the host
+    of the k rows of ``planes`` (the pool's (2, rows, d) f64, C-contiguous)
+    whose i32 ids are at ``host[o_ids]`` into ``host[o_src]``; then
+    ``host[lo:hi]`` to ``dev[lo:hi]`` in one asynchronous copy; then one
+    launch of the scatter: ``mirror_scatter_ref`` of those rows into the
+    mirror's planes (2, rows, d) at ``dev[0]`` (none for k = 0), and the
+    store of the upload's ticket to ``bufs.done``.  The caller writes no
+    host byte of ``[lo, hi)`` before ``bufs.wait()``."""
+    global SCATTERS
+    if not bufs.cuda:
+        raise ValueError("upload takes the buffers of a CUDA device")
+    if hi > bufs.nbytes or 16 * rows * d > bufs.nbytes or (
+            k and planes.shape[1:] != (rows, d)):
+        raise ValueError(f"byte range [{lo}, {hi}) or planes of {rows} rows "
+                         "outside the buffers")
+    dev, host, done, index = bufs.addrs
+    ticket = bufs.ticket + 1
+    args = (dev, host, lo, hi, rows, d, o_src, o_ids, k,
+            bufs.source_addr(planes) if k else None, done, ticket,
+            # the raw handle, through torch's private ``torch._C`` (as is
+            # ``_cuda_getDevice`` below; the card tests run this path): the
+            # public ``current_stream`` builds a Stream object, ~7 us a call
+            # on the card's host
+            torch._C._cuda_getCurrentRawStream(index))
+    if torch._C._cuda_getDevice() == index:
+        err = _lib().hlem_mirror_upload(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _lib().hlem_mirror_upload(*args)
+    if err != 0:
+        # the copy may be enqueued before the launch failed, and no ticket
+        # will say when it has read the host bytes: wait for it here
+        torch.cuda.synchronize(index)
+        raise RuntimeError(f"hlem upload failed with CUDA error {err}")
+    bufs.ticket = ticket
+    SCATTERS += 1

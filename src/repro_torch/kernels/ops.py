@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
@@ -43,6 +44,31 @@ def hlem_score_batch(free: torch.Tensor, masks: torch.Tensor,
     if free.device.type == "cpu":
         return _hlem.hlem_score_batch_ref(free, masks, spot_frac, alphas)
     return _hlem.hlem_score_batch(free, masks, spot_frac, alphas)
+
+
+def hlem_upload(bufs: "_hlem.UploadBuffers", lo: int, hi: int, rows: int,
+                d: int, o_src: int, o_ids: int, k: int,
+                planes=None) -> None:
+    """A scoring call's upload, at byte offsets into ``bufs`` (a device
+    and a host byte buffer of one layout): for k > 0 the k rows of the
+    pool's ``planes`` (numpy (2, rows, d) f64) whose i32 ids are at
+    ``host[o_ids]`` gathered into ``host[o_src]``; ``host[lo:hi]`` copied to
+    ``dev[lo:hi]``; the rows written into the mirror's planes, f64
+    (2, rows, d) at ``dev[0]`` (on the card ``hlem_score.upload``)."""
+    if bufs.cuda:
+        return _hlem.upload(bufs, lo, hi, rows, d, o_src, o_ids, k, planes)
+    host, dev = bufs.host, bufs.dev
+    if k:
+        h = host.numpy()
+        _hlem.mirror_gather_ref(
+            h[o_src:o_ids].view(np.float64).reshape(2, k, d), planes,
+            h[o_ids:o_ids + 4 * k].view(np.int32))
+    dev[lo:hi].copy_(host[lo:hi])
+    if k:
+        _hlem.mirror_scatter_ref(
+            dev[:16 * rows * d].view(torch.float64).view(2, rows, d),
+            dev[o_src:o_ids].view(torch.float64).view(2, k, d),
+            dev[o_ids:o_ids + 4 * k].view(torch.int32))
 
 
 def _no_meta(t: torch.Tensor, op: str) -> None:

@@ -417,7 +417,7 @@ def bound(free, masks):
 def staging_paths(torch, core_hlem, HostPool, n, calls=300, rows=2,
                   seed=0):
     """Host time of one scoring call's staging at n hosts through each path,
-    on the host clock: the whole fleet (the device's shared workspace) and
+    on the host clock: the whole fleet (the device's pool-less instance) and
     the pool's device mirror with ``rows`` rows written between calls (a
     placement writes one, a release one).  Each call starts with the card
     idle, as after the last call's pick.  Returns (medians in us, the
@@ -2005,7 +2005,7 @@ def main() -> int:
         t0 = time.perf_counter()
         stage_sync()
         t_stage.append(time.perf_counter() - t0)
-    ws = core_hlem._DEVICE_WS[core_hlem.resolve_device("cuda")]
+    ws = core_hlem._POOLLESS[core_hlem.resolve_device("cuda")]
     nbytes = ws.nbytes
     copy_ms = time_ms(torch, lambda: ws.dev[:nbytes].copy_(ws.host[:nbytes],
                                                             non_blocking=True))

@@ -24,6 +24,7 @@ preemption cascades, see simulator._flush_pending):
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -33,9 +34,7 @@ from .hlem import (
     hlem_pick_np,
     hlem_scores_batch_np,
     hlem_select_batch_torch,
-    hlem_select_batch_torch_traced,
     hlem_select_torch,
-    hlem_select_torch_traced,
     resolve_device,
 )
 from .hosts import HostPool
@@ -77,6 +76,34 @@ def feasibility_masks(vm: Vm, pool: HostPool, now: float):
     return direct_mask(vm, pool), clearing_mask(vm, pool, now)
 
 
+def _decision(vm_arg: int = 0, batch: bool = False):
+    """Makes a policy method an entry: one placement decision.  With an
+    enabled tracer, the outermost entry of a decision runs inside its
+    ``policy/<entry>`` span, whose args are ``{"vm": id}`` where records are
+    kept: the VM that is argument ``vm_arg``, or the first VM there for a
+    ``batch`` entry.  Entries it calls open no span of their own."""
+    def wrap(fn):
+        name = "policy/" + fn.__name__
+
+        @functools.wraps(fn)
+        def entry(self, *args, **kwargs):
+            tr = self.tracer
+            if not tr.enabled or self._deciding:
+                return fn(self, *args, **kwargs)
+            vm = args[vm_arg][0] if batch else args[vm_arg]
+            self._span_args = {"vm": int(vm.id)} if tr.keep_records else None
+            self._deciding = True
+            tr.begin("policy", name)
+            try:
+                out = fn(self, *args, **kwargs)
+            finally:
+                self._deciding = False
+            tr.end(tr.sim_t, self._span_args)
+            return out
+        return entry
+    return wrap
+
+
 class AllocationPolicy:
     """Host selection.  Its entries (``find_host``, ``find_direct``,
     ``find_first_direct``, ``find_hosts_batch``, ``_pick_direct``) are one
@@ -86,7 +113,8 @@ class AllocationPolicy:
     direct or clearing mask, market admission, the RsDiff mask) and
     ``policy/feasibility`` (the queue x fleet matrix) spans and, on the torch
     scorer, ``policy/stage``, ``policy/launch`` and ``policy/select``
-    (``core/hlem.py``).  Without one, each site costs one attribute load."""
+    (``core/hlem.py``).  Without one, each site costs one attribute load,
+    and each entry one call through ``_decision``."""
 
     name = "abstract"
 
@@ -99,20 +127,6 @@ class AllocationPolicy:
     #: the running traced decision's span args (None without records)
     _span_args = None
 
-    def _decision(self, entry: str, vm_id: int, fn, *args):
-        """``fn(self, *args)`` — the entry ``entry``, re-entered — inside the
-        decision's ``policy/<entry>`` span (the tracer is enabled)."""
-        tr = self.tracer
-        self._span_args = {"vm": int(vm_id)} if tr.keep_records else None
-        self._deciding = True
-        tr.begin("policy", "policy/" + entry)
-        try:
-            out = fn(self, *args)
-        finally:
-            self._deciding = False
-        tr.end(tr.sim_t, self._span_args)
-        return out
-
     def _end_span(self) -> None:
         """Close a child span of the running decision."""
         tr = self.tracer
@@ -121,15 +135,12 @@ class AllocationPolicy:
     def _pick(self, mask: np.ndarray, vm: Vm, pool: HostPool) -> int:
         raise NotImplementedError
 
+    @_decision()
     def find_host(
         self, vm: Vm, pool: HostPool, now: float, allow_spot_clearing: bool
     ) -> Tuple[int, bool]:
         tr = self.tracer
         if tr.enabled:
-            if not self._deciding:
-                return self._decision("find_host", vm.id,
-                                      AllocationPolicy.find_host, vm, pool,
-                                      now, allow_spot_clearing)
             tr.begin("policy", "policy/filter")
         mask = pool.direct_mask_into(vm.demand, vm.bid, vm.pool)
         if tr.enabled:
@@ -149,22 +160,17 @@ class AllocationPolicy:
                 return hid, True
         return -1, False
 
+    @_decision(vm_arg=1)
     def _pick_direct(self, mask: np.ndarray, vm: Vm, pool: HostPool) -> int:
         """Select from a direct-feasibility mask; >= 0 whenever mask is
         non-empty.  Shared by ``find_host`` and the batched flush."""
-        if self.tracer.enabled and not self._deciding:
-            return self._decision("_pick_direct", vm.id,
-                                  AllocationPolicy._pick_direct, mask, vm,
-                                  pool)
         return self._pick(mask, vm, pool)
 
+    @_decision()
     def find_direct(self, vm: Vm, pool: HostPool) -> int:
         """Direct placement only (no spot clearing): chosen host or -1."""
         tr = self.tracer
         if tr.enabled:
-            if not self._deciding:
-                return self._decision("find_direct", vm.id,
-                                      AllocationPolicy.find_direct, vm, pool)
             tr.begin("policy", "policy/filter")
         mask = pool.direct_mask_into(vm.demand, vm.bid, vm.pool)
         if tr.enabled:
@@ -174,6 +180,7 @@ class AllocationPolicy:
         return self._pick_direct(mask, vm, pool)
 
     # -- batched path --------------------------------------------------------
+    @_decision(batch=True)
     def find_hosts_batch(
         self, vms: Sequence[Vm], pool: HostPool, now: float
     ) -> np.ndarray:
@@ -185,10 +192,6 @@ class AllocationPolicy:
         (committing one row invalidates the rest)."""
         tr = self.tracer
         if tr.enabled:
-            if not self._deciding:
-                return self._decision("find_hosts_batch", vms[0].id,
-                                      AllocationPolicy.find_hosts_batch, vms,
-                                      pool, now)
             tr.begin("policy", "policy/feasibility")
         demands = np.stack([vm.demand for vm in vms])
         bids = np.array([vm.bid for vm in vms])
@@ -198,6 +201,7 @@ class AllocationPolicy:
             self._end_span()
         return self._pick_batch(feas, vms, pool)
 
+    @_decision(batch=True)
     def find_first_direct(
         self, vms: Sequence[Vm], pool: HostPool
     ) -> Tuple[int, int]:
@@ -212,10 +216,6 @@ class AllocationPolicy:
         nvm = len(vms)
         tr = self.tracer
         if tr.enabled:
-            if not self._deciding:
-                return self._decision("find_first_direct", vms[0].id,
-                                      AllocationPolicy.find_first_direct,
-                                      vms, pool)
             tr.counters.inc("alloc/batch_rows", nvm)
             tr.begin("policy", "policy/feasibility")
         demands = np.empty((nvm, vms[0].demand.shape[0]))
@@ -338,23 +338,17 @@ class HlemVmp(AllocationPolicy):
         spot_frac = pool.spot_frac_view()
         alpha = self._alpha_for(vm)
         if self.backend == "torch":
-            tr = self.tracer
-            if tr.enabled:
-                return hlem_select_torch_traced(
-                    tr, self._span_args, free, mask, spot_frac, alpha,
-                    self.device, pool)
             return hlem_select_torch(free, mask, spot_frac, alpha,
-                                     self.device, pool)
+                                     self.device, pool, tracer=self.tracer,
+                                     span_args=self._span_args)
         return hlem_pick_np(free, mask, spot_frac, alpha)
 
+    @_decision(vm_arg=1)
     def _pick_direct(self, mask, vm, pool):
-        tr = self.tracer
-        if tr.enabled and not self._deciding:
-            return self._decision("_pick_direct", vm.id, HlemVmp._pick_direct,
-                                  mask, vm, pool)
         # primary candidate list: feasible AND RsDiff above threshold;
         # relaxed to plain feasibility if that leaves no candidate
         if self.backend == "torch":
+            tr = self.tracer
             if tr.enabled:
                 tr.begin("policy", "policy/filter")
             primary = mask & self._rsdiff_ok(vm, pool)
@@ -386,12 +380,10 @@ class HlemVmp(AllocationPolicy):
         return hlem_pick_candidates_np(
             pool.free(), cand, pool.spot_frac_view(), self._alpha_for(vm))
 
+    @_decision()
     def find_host(self, vm, pool, now, allow_spot_clearing):
         tr = self.tracer
         if tr.enabled:
-            if not self._deciding:
-                return self._decision("find_host", vm.id, HlemVmp.find_host,
-                                      vm, pool, now, allow_spot_clearing)
             tr.begin("policy", "policy/filter")
         if self.backend == "torch":
             direct = pool.direct_mask_into(vm.demand, vm.bid, vm.pool)
@@ -417,14 +409,12 @@ class HlemVmp(AllocationPolicy):
                 return self._pick_direct(clearing, vm, pool), True
         return -1, False
 
+    @_decision()
     def find_direct(self, vm, pool):
         if self.backend == "torch":
             return super().find_direct(vm, pool)
         tr = self.tracer
         if tr.enabled:
-            if not self._deciding:
-                return self._decision("find_direct", vm.id,
-                                      HlemVmp.find_direct, vm, pool)
             tr.begin("policy", "policy/filter")
         idx = pool.direct_idx_into(vm.demand, vm.bid, vm.pool)
         if tr.enabled:
@@ -452,14 +442,9 @@ class HlemVmp(AllocationPolicy):
             self._end_span()
         alphas = np.array([self._alpha_for(vms[b]) for b in rows])
         if self.backend == "torch":
-            if tr.enabled:
-                out[rows] = hlem_select_batch_torch_traced(
-                    tr, self._span_args, pool.free(), masks,
-                    pool.spot_frac_view(), alphas, self.device, pool)
-                return out
             out[rows] = hlem_select_batch_torch(
                 pool.free(), masks, pool.spot_frac_view(), alphas, self.device,
-                pool)
+                pool, tracer=tr, span_args=self._span_args)
             return out
         scores = hlem_scores_batch_np(
             pool.free(), masks, pool.spot_frac_view(), alphas)

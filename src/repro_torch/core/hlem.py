@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels import hlem_score as hk, ops
+from ..obs.tracer import NULL_TRACER
 
 _EPS = 1e-12
 
@@ -300,14 +301,27 @@ def _align16(nbytes: int) -> int:
 MIRROR_FULL_SHARE = 1 / 16
 
 
-class _Staging:
-    """A host and a device byte buffer with one layout
-    (``kernels.hlem_score.UploadBuffers``; pinned host memory on a card): a
-    scoring call packs its inputs into the host bytes and hands a range of
-    them to the card in ONE asynchronous copy (``ops.hlem_upload``).  Byte
+class _FleetMirror:
+    """The fleet's ``free`` and ``spot_frac`` rows on the card, staged
+    through a host and a device byte buffer of one layout
+    (``kernels.hlem_score.UploadBuffers``; pinned host memory on a card):
+    planes (2, rows, D) f64 (free, then spot fraction) | alphas (B,) f64 |
+    masks u8 | changed rows (2, k, D) f64 | their ids (k,) i32.  Byte
     offsets are 16-aligned for the kernel's 16-byte copies.  The buffers
     grow and are never shrunk, and the views of them are kept per shape, so
-    a call allocates nothing and builds no tensor view."""
+    a call allocates nothing and builds no tensor view.
+
+    A pool's own instance (``HostPool.mirror``, so it dies with the pool)
+    keeps its planes (``HostPool.planes``; rows the pool's capacity) on the
+    card between scoring calls.  A call packs its mask, alphas and the ids
+    of the rows the pool wrote since the last call (``HostPool.
+    take_changed``); the upload gathers those rows beside them, copied bits,
+    hands everything over in ONE asynchronous copy (``ops.hlem_upload``) and
+    writes the rows into the planes with one scatter launch.  The first
+    call, the first after the pool grew or the buffers were replaced, a
+    call with more changed rows than ``MIRROR_FULL_SHARE`` of the fleet, and
+    every call without a pool (no change log: its device's instance, rows =
+    n) send both planes whole instead."""
 
     #: at most this many shapes' views are kept
     MAX_VIEWS = 64
@@ -317,9 +331,11 @@ class _Staging:
         self.cap = 0
         self.bufs: Optional[hk.UploadBuffers] = None
         self.nbytes = 0      # bytes handed to the card by the last call
-        self.rows_sent = 0   # changed rows among them (a mirror's delta)
+        self.rows_sent = 0   # changed rows among them (a delta)
         self.full = True     # the last call sent the whole fleet
         self.views: Dict[tuple, tuple] = {}
+        self.rows = 0        # rows of each plane the device holds; 0: none
+        self.d = 0
 
     def _ensure(self, nbytes: int) -> bool:
         """Room for ``nbytes``; True when the buffers were replaced (what
@@ -349,86 +365,18 @@ class _Staging:
         ops.hlem_upload(self.bufs, lo, hi, rows, d, o_src, o_ids, k, planes)
         self.nbytes = hi - lo
 
-    def _remember(self, key: tuple, views: tuple) -> tuple:
-        if len(self.views) >= self.MAX_VIEWS:
-            self.views.clear()
-        self.views[key] = views
-        return views
-
-    def _call_views(self, o: int, n: int, mshape: tuple, b: int,
-                    with_alphas: bool):
-        """Host (numpy) and device views of a call's alphas (B,) f64 at byte
-        ``o`` and masks (``mshape``: (n,) or (B, n)) u8 after them; the byte
-        after the masks."""
-        o_mask = o + _align16(b * 8)
-        end = o_mask + b * n
-        h, v = self.host_np, self.dev
-        return (None if not with_alphas else h[o:o + b * 8].view(np.float64),
-                h[o_mask:end].reshape(mshape),
-                None if not with_alphas
-                else v[o:o + b * 8].view(torch.float64),
-                v[o_mask:end].view(mshape), end)
-
-
-class _DeviceWorkspace(_Staging):
-    """The whole fleet at each call, one workspace a device.  Layout: free
-    (n, D) f64 | spot_frac (n, D) f64 | alphas (B,) f64 | masks u8."""
-
-    def stage(self, free, masks, spot_frac, alphas):
-        n, d = free.shape
-        key = (n, d, masks.shape, alphas is not None)
-        vw = self.views.get(key)
-        if vw is None:
-            nf = n * d * 8
-            o_spot = _align16(nf)
-            o_alpha = o_spot + _align16(nf)
-            b = masks.shape[0] if masks.ndim == 2 else 1
-            self._ensure(o_alpha + _align16(b * 8) + b * n)
-            h, v = self.host_np, self.dev
-            h_alpha, h_mask, d_alpha, d_mask, total = self._call_views(
-                o_alpha, n, masks.shape, b, alphas is not None)
-            vw = self._remember(key, (
-                h[:nf].view(np.float64).reshape(n, d),
-                h[o_spot:o_spot + nf].view(np.float64).reshape(n, d),
-                h_alpha, h_mask, total,
-                (v[:nf].view(torch.float64).view(n, d), d_mask,
-                 v[o_spot:o_spot + nf].view(torch.float64).view(n, d),
-                 d_alpha)))
-        h_free, h_spot, h_alpha, h_mask, total, out = vw
-        self._wait()
-        np.copyto(h_free, free)
-        np.copyto(h_spot, spot_frac)
-        if alphas is not None:
-            np.copyto(h_alpha, alphas)
-        np.copyto(h_mask, masks)
-        self._upload(0, total)
-        self.rows_sent, self.full = 0, True
-        return out
-
-
-class _FleetMirror(_Staging):
-    """A pool's ``free`` and ``spot_frac`` rows kept on the card between
-    scoring calls; one a pool (``HostPool.mirror``), so it dies with it.
-    Layout: planes (2, rows, D) f64 (``HostPool.planes``: free, then spot
-    fraction; rows the pool's capacity) | alphas (B,) f64 | masks u8 |
-    changed rows (2, k, D) f64 | their ids (k,) i32.  A call packs its mask,
-    alphas and the ids of the rows the pool wrote since the last call
-    (``HostPool.take_changed``); the upload gathers those rows beside them,
-    copied bits, hands everything over in one copy and writes the rows into
-    the planes with one scatter launch.  The first call, the first after
-    the pool grew or the buffers were replaced, and a call with more changed
-    rows than ``MIRROR_FULL_SHARE`` of the fleet send both planes whole
-    instead."""
-
-    def __init__(self, device: torch.device):
-        super().__init__(device)
-        self.rows = 0      # rows of each plane the device holds; 0: none
-        self.d = 0
-
-    def stage(self, pool, masks, alphas):
-        planes = pool.planes()
-        _, rows, d = planes.shape
-        n = pool.n
+    def stage(self, pool, masks, alphas, free=None, spot_frac=None):
+        """Device views (free, masks, spot_frac, alphas) of the call's
+        inputs: ``pool``'s rows, or where ``pool`` is None the (n, D)
+        ``free`` and ``spot_frac`` given; ``masks`` (n,) or (B, n);
+        ``alphas`` (B,) or None."""
+        if pool is None:
+            planes, (rows, d) = (free, spot_frac), free.shape
+            n = rows
+        else:
+            planes = pool.planes()
+            _, rows, d = planes.shape
+            n = pool.n
         # nothing is held until this call's upload is made: a call that
         # raises before it leaves the next one a full upload
         held_rows, self.rows = self.rows, 0
@@ -438,26 +386,35 @@ class _FleetMirror(_Staging):
         if vw is None:
             b = masks.shape[0] if masks.ndim == 2 else 1
             o_call = 16 * rows * d
-            o_src = _align16(o_call + _align16(b * 8) + b * n)
+            o_mask = o_call + _align16(b * 8)
+            o_src = _align16(o_mask + b * n)
             replaced = self._ensure(
                 o_src + int(MIRROR_FULL_SHARE * n) * (16 * d + 4))
-            h_alpha, h_mask, d_alpha, d_mask, _ = self._call_views(
-                o_call, n, masks.shape, b, alphas is not None)
-            held = self.dev[:o_call].view(torch.float64).view(2, rows, d)
-            vw = self._remember(key, (o_call, o_src, h_alpha, h_mask, (
-                held[0, :n], d_mask, held[1, :n], d_alpha)))
-        o_call, o_src, h_alpha, h_mask, out = vw
+            h, v = self.host_np, self.dev
+            held = v[:o_call].view(torch.float64).view(2, rows, d)
+            a, m = slice(o_call, o_call + b * 8), slice(o_mask, o_mask + b * n)
+            with_alphas = alphas is not None
+            if len(self.views) >= self.MAX_VIEWS:
+                self.views.clear()
+            vw = self.views[key] = (
+                o_call, o_src,
+                self.host_f64[:2 * rows * d].reshape(2, rows, d)[:, :n],
+                h[a].view(np.float64) if with_alphas else None,
+                h[m].reshape(masks.shape),
+                (held[0, :n], v[m].view(masks.shape), held[1, :n],
+                 v[a].view(torch.float64) if with_alphas else None))
+        o_call, o_src, h_planes, h_alpha, h_mask, out = vw
         self._wait()
         if alphas is not None:
             np.copyto(h_alpha, alphas)
         np.copyto(h_mask, masks)
-        changed = pool.take_changed()
+        changed = None if pool is None else pool.take_changed()
         full = (changed is None or replaced or rows != held_rows
                 or len(changed) > MIRROR_FULL_SHARE * n)
         k = 0 if full else len(changed)
         if full:
-            np.copyto(self.host_f64[:2 * rows * d].reshape(2, rows, d)[:, :n],
-                      planes[:, :n])
+            for h_plane, plane in zip(h_planes, planes):
+                np.copyto(h_plane, plane[:n])
             self._upload(0, o_src)
         elif k:
             o_ids = o_src + 16 * k * d
@@ -481,21 +438,22 @@ class _FleetMirror(_Staging):
         return v.view(2, self.rows, self.d)[:, :m].cpu().numpy()
 
 
-_DEVICE_WS: Dict[torch.device, _DeviceWorkspace] = {}
+#: the instance of each device through which the calls without a pool stage
+_POOLLESS: Dict[torch.device, _FleetMirror] = {}
 
 
-def _stager(device: torch.device, pool) -> _Staging:
+def _stager(device: torch.device, pool) -> _FleetMirror:
     """What stages a call on the CUDA ``device``: the pool's mirror where
-    the call brings a pool, else the device's shared workspace."""
-    if pool is not None:
-        mirror = pool.mirror
-        if mirror is None or mirror.device != device:
-            mirror = pool.mirror = _FleetMirror(device)
-        return mirror
-    ws = _DEVICE_WS.get(device)
-    if ws is None:
-        ws = _DEVICE_WS[device] = _DeviceWorkspace(device)
-    return ws
+    the call brings a pool, else the device's pool-less instance."""
+    if pool is None:
+        st = _POOLLESS.get(device)
+        if st is None:
+            st = _POOLLESS[device] = _FleetMirror(device)
+        return st
+    mirror = pool.mirror
+    if mirror is None or mirror.device != device:
+        mirror = pool.mirror = _FleetMirror(device)
+    return mirror
 
 
 def resolve_device(device) -> torch.device:
@@ -532,10 +490,7 @@ def stage_to_device(device, free, masks, spot_frac, alphas=None, pool=None):
                 torch.from_numpy(np.asarray(spot_frac, dtype=np.float64)),
                 None if alphas is None
                 else torch.from_numpy(np.asarray(alphas, dtype=np.float64)))
-    st = _stager(device, pool)
-    if isinstance(st, _FleetMirror):
-        return st.stage(pool, masks, alphas)
-    return st.stage(free, masks, spot_frac, alphas)
+    return _stager(device, pool).stage(pool, masks, alphas, free, spot_frac)
 
 
 def hlem_scores_torch(
@@ -553,14 +508,59 @@ def hlem_scores_torch(
     return ops.hlem_score(free_d, mask_d, spot_d, float(alpha))
 
 
+# The two selections stage (``stage_to_device``), launch (``kernels.ops``) and
+# read the pick back.  With an enabled ``tracer`` (the policy's) they split the
+# call into spans, with ``span_args`` as their args: ``policy/stage`` (the
+# wait on the previous copy, the packing into pinned memory, the enqueued H2D
+# and, through a pool's mirror, the scatter of changed rows),
+# ``policy/launch`` (``kernels.ops`` to the kernel's launch) and
+# ``policy/select`` (the argmax and the host's read of the pick: the D2H and
+# the wait for the kernel); and they count the call (``_count_staging``).
+def _count_staging(tr, pool, *tensors) -> None:
+    """Counters ``hlem/calls`` (scoring calls: one kernel launch each on the
+    card), ``hlem/staged_bytes`` (the bytes handed to the card; on the CPU
+    the arrays handed over), ``hlem/rows_uploaded`` (changed rows a mirror
+    sent) and ``hlem/full_uploads`` (calls that sent the whole fleet), for
+    the call that staged ``tensors``."""
+    inc = tr.counters.inc
+    inc("hlem/calls")
+    device = tensors[0].device
+    if device.type == "cpu":
+        inc("hlem/staged_bytes", sum(t.nbytes for t in tensors
+                                     if t is not None))
+        inc("hlem/rows_uploaded", 0)
+        inc("hlem/full_uploads")
+        return
+    st = _stager(device, pool)
+    inc("hlem/staged_bytes", st.nbytes)
+    inc("hlem/rows_uploaded", st.rows_sent)
+    inc("hlem/full_uploads", int(st.full))
+
+
 def hlem_select_torch(free, mask, spot_frac, alpha, device="cuda",
-                      pool=None) -> int:
+                      pool=None, *, tracer=NULL_TRACER,
+                      span_args=None) -> int:
     """argmax host id of ``hlem_scores_torch``, or -1 if no candidate."""
     mask = np.asarray(mask, dtype=bool)
     if not mask.any():
         return -1
-    return int(torch.argmax(
-        hlem_scores_torch(free, mask, spot_frac, alpha, device, pool)))
+    tr = tracer
+    if tr.enabled:
+        tr.begin("policy", "policy/stage")
+    free_d, mask_d, spot_d, _ = stage_to_device(device, free, mask,
+                                                spot_frac, pool=pool)
+    if tr.enabled:
+        tr.end(tr.sim_t, span_args)
+        tr.begin("policy", "policy/launch")
+    scores = ops.hlem_score(free_d, mask_d, spot_d, float(alpha))
+    if tr.enabled:
+        tr.end(tr.sim_t, span_args)
+        tr.begin("policy", "policy/select")
+    hid = int(torch.argmax(scores))
+    if tr.enabled:
+        tr.end(tr.sim_t, span_args)
+        _count_staging(tr, pool, free_d, mask_d, spot_d)
+    return hid
 
 
 # Batched variants: score B pending VM demands against the same host state in
@@ -588,83 +588,27 @@ def hlem_select_batch_torch(
     alpha,                   # (B,) or one scalar for all rows
     device="cuda",
     pool=None,               # the HostPool of free and spot_frac, if any
+    *, tracer=NULL_TRACER, span_args=None,
 ) -> np.ndarray:             # (B,) selected host per VM, -1 for an empty row
-    masks = np.asarray(masks, dtype=bool)
-    idx = torch.argmax(hlem_scores_batch_torch(free, masks, spot_frac, alpha,
-                                               device, pool), dim=1)
-    return np.where(masks.any(axis=1), idx.cpu().numpy(), -1)
-
-
-# Traced twins of the two selections, chosen by the policy once per call when
-# its tracer is enabled (the untraced path runs the functions above as they
-# are): the same calls, split into ``policy/stage`` (``stage_to_device``: the
-# wait on the previous copy, the packing into pinned memory, the enqueued H2D
-# and, through a pool's mirror, the scatter of changed rows), ``policy/launch``
-# (``kernels.ops`` to the kernel's launch) and ``policy/select`` (the argmax
-# and the host's read of the pick: the D2H and the wait for the kernel), with
-# counters ``hlem/calls`` (scoring calls: one kernel launch each on the card),
-# ``hlem/staged_bytes`` (the bytes handed to the card; on the CPU the arrays
-# handed over), ``hlem/rows_uploaded`` (changed rows a mirror sent) and
-# ``hlem/full_uploads`` (calls that sent the whole fleet).
-def _count_staging(tr, device: torch.device, pool, *tensors) -> None:
-    inc = tr.counters.inc
-    inc("hlem/calls")
-    if device.type == "cpu":
-        inc("hlem/staged_bytes", sum(t.nbytes for t in tensors
-                                     if t is not None))
-        inc("hlem/rows_uploaded", 0)
-        inc("hlem/full_uploads")
-        return
-    st = _stager(device, pool)
-    inc("hlem/staged_bytes", st.nbytes)
-    inc("hlem/rows_uploaded", st.rows_sent)
-    inc("hlem/full_uploads", int(st.full))
-
-
-def hlem_select_torch_traced(tracer, args, free, mask, spot_frac, alpha,
-                             device="cuda", pool=None) -> int:
-    """:func:`hlem_select_torch` in the tracer's spans (``args`` their
-    args) and counters."""
-    mask = np.asarray(mask, dtype=bool)
-    if not mask.any():
-        return -1
     tr = tracer
-    device = resolve_device(device)
-    tr.begin("policy", "policy/stage")
-    free_d, mask_d, spot_d, _ = stage_to_device(device, free, mask,
-                                                spot_frac, pool=pool)
-    tr.end(tr.sim_t, args)
-    tr.begin("policy", "policy/launch")
-    scores = ops.hlem_score(free_d, mask_d, spot_d, float(alpha))
-    tr.end(tr.sim_t, args)
-    tr.begin("policy", "policy/select")
-    hid = int(torch.argmax(scores))
-    tr.end(tr.sim_t, args)
-    _count_staging(tr, device, pool, free_d, mask_d, spot_d)
-    return hid
-
-
-def hlem_select_batch_torch_traced(tracer, args, free, masks, spot_frac,
-                                   alpha, device="cuda",
-                                   pool=None) -> np.ndarray:
-    """:func:`hlem_select_batch_torch` in the tracer's spans (``args``
-    their args) and counters."""
-    tr = tracer
-    device = resolve_device(device)
-    tr.begin("policy", "policy/stage")
+    if tr.enabled:
+        tr.begin("policy", "policy/stage")
     masks = np.asarray(masks, dtype=bool)
     alphas = np.full(masks.shape[0], alpha, dtype=np.float64)
     free_d, masks_d, spot_d, alphas_d = stage_to_device(
         device, free, masks, spot_frac, alphas, pool)
-    tr.end(tr.sim_t, args)
-    tr.begin("policy", "policy/launch")
+    if tr.enabled:
+        tr.end(tr.sim_t, span_args)
+        tr.begin("policy", "policy/launch")
     scores = ops.hlem_score_batch(free_d, masks_d, spot_d, alphas_d)
-    tr.end(tr.sim_t, args)
-    tr.begin("policy", "policy/select")
+    if tr.enabled:
+        tr.end(tr.sim_t, span_args)
+        tr.begin("policy", "policy/select")
     out = np.where(masks.any(axis=1),
                    torch.argmax(scores, dim=1).cpu().numpy(), -1)
-    tr.end(tr.sim_t, args)
-    _count_staging(tr, device, pool, free_d, masks_d, spot_d, alphas_d)
+    if tr.enabled:
+        tr.end(tr.sim_t, span_args)
+        _count_staging(tr, pool, free_d, masks_d, spot_d, alphas_d)
     return out
 
 

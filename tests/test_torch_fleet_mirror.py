@@ -203,9 +203,9 @@ def test_full_upload_rule():
 
 
 def test_stager_follows_the_fleet_size_and_the_pool():
-    """The pool, not its size, picks the path: a pool's own mirror from one
-    host up (made once, kept as the pool grows), the device's shared
-    workspace for a call without a pool."""
+    """The pool, not its size, picks the instance: a pool's own mirror from
+    one host up (made once, kept as the pool grows), the device's pool-less
+    instance of the same class for a call without a pool."""
     twin = _Twin(5, False, hint=4)
     twin.add_hosts(1)
     pool = twin.port
@@ -215,11 +215,12 @@ def test_stager_follows_the_fleet_size_and_the_pool():
         assert pool.mirror is mirror
         twin.add_hosts(40)
         assert hlem._stager(CPU, pool) is mirror
-        ws = hlem._stager(CPU, None)
-        assert isinstance(ws, hlem._DeviceWorkspace)
-        assert hlem._stager(CPU, None) is ws
+        st = hlem._stager(CPU, None)
+        assert type(st) is hlem._FleetMirror and st is not mirror
+        assert hlem._POOLLESS[CPU] is st
+        assert hlem._stager(CPU, None) is st
     finally:
-        hlem._DEVICE_WS.pop(CPU, None)
+        hlem._POOLLESS.pop(CPU, None)
 
 
 @pytest.mark.parametrize("n", [1, 3, 170])
@@ -266,24 +267,25 @@ def test_a_failed_call_leaves_a_full_upload():
 
 @pytest.mark.parametrize("b", [None, 1, 5])
 def test_workspace_reuses_its_views(b):
-    """The whole-fleet path on the CPU: the arrays as given, and the same
-    tensor views at the next call of the same shape."""
+    """The pool-less path on the CPU: the arrays as given, the whole fleet
+    each call, and the same tensor views at the next call of the same
+    shape."""
     rng = np.random.default_rng(3)
-    ws = hlem._DeviceWorkspace(CPU)
+    st = hlem._FleetMirror(CPU)
     outs = []
     for _ in range(2):
         free = rng.uniform(0, 10, (37, 4))
         spot = rng.uniform(0, 1, (37, 4))
         masks = rng.random(37 if b is None else (b, 37)) < 0.5
         alphas = None if b is None else rng.uniform(-1, 1, b)
-        out = ws.stage(free, masks, spot, alphas)
+        out = st.stage(None, masks, alphas, free, spot)
         assert np.array_equal(out[0].numpy(), free)
         assert np.array_equal(out[1].numpy(), masks)
         assert np.array_equal(out[2].numpy(), spot)
         if b is not None:
             assert np.array_equal(out[3].numpy(), alphas)
-        assert ws.full and ws.rows_sent == 0
-        assert ws.nbytes >= 37 * 4 * 8 * 2 + masks.size
+        assert st.full and st.rows_sent == 0
+        assert st.nbytes >= 37 * 4 * 8 * 2 + masks.size
         outs.append(out)
     assert all(x is y for x, y in zip(*outs))
 
